@@ -1,0 +1,497 @@
+"""Discrete action models (knots) with Gauss-Newton derivatives.
+
+PyTorch counterpart of ``ffmpc_tpu/ocp/action.py``, vector/analytic form,
+batched natively: every knot function takes tensors with arbitrary leading
+batch dims (a single knot slice of ``ProblemRefs``, states (..., nx),
+controls (..., nu)).
+
+Ported so far: the augmented LPF knot (force-feedback): state y=(q,v,tau) in
+R^21, control w in R^7, with tau+ = alpha*tau + (1-alpha)*w and outer y/w
+regularization costs, on top of the classical inner knot (semi-implicit Euler
+over free or contact forward dynamics with the full cost stack), with the
+1-D normal contact (``contact_model="normal_1d"``); any other contact model
+raises.
+
+Derivatives: dynamics Jacobians come from the KKT implicit-function theorem
+(``core.dynamics``); cost Hessians are assembled Gauss-Newton style
+(activation grad / diagonal Hessian; residual second derivatives dropped).
+Cost scaling: running knot cost is dt * sum(inner costs); the augmented outer
+costs are discrete-level (never dt-scaled).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.panda import PandaModel
+from ..core.dynamics import (fwd_dynamics_free, fwd_dynamics_contact,
+                             free_dynamics_derivs, contact_dynamics_derivs,
+                             jac_last)
+from ..core.kinematics import fk, ee_jacobian
+from ..core.smallchol import matvec as _mv
+from ..core.spatial import log3
+from . import activations as act
+from .weights import OCPWeights, ProblemRefs
+
+
+class CostTerm(NamedTuple):
+    weight: float
+    activation: act.Activation
+    dt_scaled: bool         # True: running-knot cost is scaled by dt_ocp
+    terminal: bool          # participates in the terminal knot
+
+
+class KnotDeriv(NamedTuple):
+    xnext: torch.Tensor   # (..., nx)
+    cost: torch.Tensor    # (...,)
+    Fx: torch.Tensor      # (..., nx, nx)
+    Fu: torch.Tensor      # (..., nx, nu)
+    Lx: torch.Tensor      # (..., nx)
+    Lu: torch.Tensor      # (..., nu)
+    Lxx: torch.Tensor     # (..., nx, nx)
+    Lxu: torch.Tensor     # (..., nx, nu)
+    Luu: torch.Tensor     # (..., nu, nu)
+
+
+class KnotModel(NamedTuple):
+    """Static bundle of knot callables consumed by the solver.
+
+    calc:      (ref_k, x, u) -> (xnext, cost)
+    diff:      (ref_k, x, u) -> KnotDeriv
+    term_calc: (ref_T, x) -> cost
+    term_diff: (ref_T, x) -> (cost, Lx, Lxx)
+    """
+    calc: Callable
+    diff: Callable
+    term_calc: Callable
+    term_diff: Callable
+    nx: int
+    nu: int
+    u_lb: Tuple[float, ...]
+    u_ub: Tuple[float, ...]
+
+
+# ---------------------------------------------------------------------------
+# residual stacks
+# ---------------------------------------------------------------------------
+
+def _build_q_soft_barrier(model: PandaModel, margin: float):
+    """Barrier bounds for the joint-limit soft cost: the residual is
+    x - x_ref with x_ref = (q_mid, 0); bounds shrink by margin."""
+    q_lb = model.q_lower.detach().cpu().numpy().astype(np.float64)
+    q_ub = model.q_upper.detach().cpu().numpy().astype(np.float64)
+    q_ref = 0.5 * (q_lb + q_ub)
+    lb_q = (q_lb + margin) - q_ref
+    ub_q = (q_ub - margin) - q_ref
+    bad = lb_q > ub_q
+    lb_q[bad] = -1.0e-3
+    ub_q[bad] = 1.0e-3
+    lb = np.concatenate([lb_q, np.full(7, -np.inf)])
+    ub = np.concatenate([ub_q, np.full(7, np.inf)])
+    x_ref = np.concatenate([q_ref, np.zeros(7)])
+    return x_ref, lb, ub
+
+
+def _make_spec(model: PandaModel, W: OCPWeights, surface: bool):
+    """Static cost-term spec: name -> CostTerm. Order fixes residual layout.
+    The contact is the 1-D normal one (force in R^1)."""
+    spec: Dict[str, CostTerm] = {}
+
+    spec["posture"] = CostTerm(W.w_posture, act.quad(), True, True)
+    spec["v_damp"] = CostTerm(
+        W.w_v, act.wquad([0.0] * 7 + list(W.v_damp_weights)), True, True)
+    if W.w_q_soft_limits > 0.0:
+        _, lb, ub = _build_q_soft_barrier(model, W.q_soft_limit_margin)
+        spec["q_soft_limits"] = CostTerm(W.w_q_soft_limits, act.barrier(lb, ub), True, True)
+    spec["ee_ori"] = CostTerm(W.w_ee_ori, act.wquad(W.ori_weights), True, True)
+    spec["w_damp"] = CostTerm(
+        W.w_wdamp, act.wquad([0.0, 0.0, 0.0] + list(W.w_wdamp_weights)), True, True)
+
+    # running-only control costs
+    spec["tau_reg"] = CostTerm(W.w_tau, act.quad(), True, False)
+    if W.w_tau_soft_limits > 0.0:
+        tau_lim = np.asarray(W.tau_limits)
+        margin = min(max(W.tau_soft_limit_margin, 0.0), float(tau_lim.min()) - 1e-6)
+        spec["tau_soft_limits"] = CostTerm(
+            W.w_tau_soft_limits, act.barrier(-tau_lim + margin, tau_lim - margin), True, False)
+
+    if not surface:
+        spec["ee_pos"] = CostTerm(W.w_ee_pos, act.wquad(W.ee_pos_weights), True, True)
+    else:
+        spec["ee_xy"] = CostTerm(W.w_tangent_pos, act.wquad([1.0, 1.0, 0.0]), True, True)
+        spec["ee_vxy"] = CostTerm(
+            W.w_tangent_vel, act.wquad([1.0, 1.0, 0.0, 0.0, 0.0, 0.0]), True, True)
+        if W.w_plane_z > 0.0:
+            spec["plane_z"] = CostTerm(W.w_plane_z, act.wquad([0.0, 0.0, 1.0]), True, True)
+        if W.w_vz > 0.0:
+            spec["vz_damp"] = CostTerm(
+                W.w_vz, act.wquad([0.0, 0.0, 1.0, 0.0, 0.0, 0.0]), True, True)
+        if W.w_unilateral > 0.0:
+            spec["unilateral"] = CostTerm(
+                W.w_unilateral, act.barrier([W.friction_margin], [np.inf]), True, True)
+        if W.w_fn > 0.0:
+            spec["fn_track"] = CostTerm(W.w_fn, act.wquad([1.0]), True, True)
+
+    return spec
+
+
+def _press_point(W: OCPWeights, ref):
+    """p_ref with its z lowered by the press depth: (..., 3)."""
+    return torch.cat([ref.p_ref[..., :2],
+                      ref.p_ref[..., 2:3] - W.z_press], dim=-1)
+
+
+def _contact_ref_pos(W: OCPWeights, ref):
+    return ref.p_ref[..., 2] - W.z_press
+
+
+def _residual_values(model: PandaModel, W: OCPWeights, surface: bool,
+                     terminal: bool, ref, x, u, fk_res, vel6, force):
+    """Residual dict for one classical knot from precomputed kinematics."""
+    res: Dict[str, torch.Tensor] = {}
+    res["posture"] = x - ref.x_reg_ref
+    res["v_damp"] = x
+    if W.w_q_soft_limits > 0.0:
+        x_ref_np, _, _ = _build_q_soft_barrier(model, W.q_soft_limit_margin)
+        res["q_soft_limits"] = x - torch.as_tensor(x_ref_np, dtype=x.dtype,
+                                                   device=x.device)
+    res["ee_ori"] = log3(ref.R_des.transpose(-1, -2) @ fk_res.ee_R)
+    res["w_damp"] = vel6
+    if not terminal:
+        res["tau_reg"] = u - ref.tau_ref
+        if W.w_tau_soft_limits > 0.0:
+            res["tau_soft_limits"] = u
+    if not surface:
+        res["ee_pos"] = fk_res.ee_p - ref.p_ref
+    else:
+        res["ee_xy"] = fk_res.ee_p - ref.p_ref
+        v_ref6 = torch.cat([ref.v_ref[..., :2],
+                            torch.zeros_like(vel6[..., :4])], dim=-1)
+        res["ee_vxy"] = vel6 - v_ref6
+        if W.w_plane_z > 0.0:
+            res["plane_z"] = fk_res.ee_p - _press_point(W, ref)
+        if W.w_vz > 0.0:
+            res["vz_damp"] = vel6
+        if W.w_unilateral > 0.0:
+            res["unilateral"] = force
+        if W.w_fn > 0.0:
+            res["fn_track"] = force - W.fn_des
+
+    return res
+
+
+def _classical_raw(model: PandaModel, W: OCPWeights, surface: bool,
+                   terminal: bool, ref, x, u):
+    """xnext + residual dict for one classical knot. x: (..., 14), u: (..., 7)."""
+    dt = float(W.dt_ocp)
+    q, v = x[..., :7], x[..., 7:]
+
+    if surface:
+        dyn = fwd_dynamics_contact(
+            model, q, v, u, ref_pos=_contact_ref_pos(W, ref), nc1=True,
+            baumgarte_kp=W.contact_gains[0], baumgarte_kd=W.contact_gains[1],
+            damping_c=W.contact_inv_damping)
+        acc, force, fk_res = dyn.acc, dyn.force, dyn.fk_res
+    else:
+        fk_res = fk(model, q)
+        acc = fwd_dynamics_free(model, q, v, u, fk_res=fk_res)
+        force = None
+
+    v_next = v + dt * acc
+    q_next = q + dt * v_next
+    xnext = torch.cat([q_next, v_next], dim=-1)
+
+    Jp, Jr = ee_jacobian(model, q, fk_res=fk_res)
+    vel6 = torch.cat([_mv(Jp, v), _mv(Jr, v)], dim=-1)
+
+    res = _residual_values(model, W, surface, terminal, ref, x, u,
+                           fk_res, vel6, force)
+    return xnext, res
+
+
+def _assemble_cost(spec, res, dt_scale: float, terminal: bool):
+    """Sum weighted activations.  ``dt_scale`` multiplies dt_scaled terms."""
+    cost = 0.0
+    for name, term in spec.items():
+        if terminal and not term.terminal:
+            continue
+        scale = dt_scale if term.dt_scaled else 1.0
+        cost = cost + term.weight * scale * act.value(term.activation, res[name])
+    return cost
+
+
+def _assemble_gn(spec, res, Jx, Ju, dt_scale: float, terminal: bool,
+                 nx: int, nu: int, like: torch.Tensor):
+    """Gauss-Newton assembly.  Jx/Ju: dicts of residual Jacobians
+    (..., nr, nx) / (..., nr, nu); a missing or ``None`` entry means an
+    exactly-zero Jacobian.  ``like``: a (..., nx) tensor fixing batch shape,
+    dtype and device."""
+    batch = like.shape[:-1]
+    kw = dict(dtype=like.dtype, device=like.device)
+    Lx = torch.zeros(batch + (nx,), **kw)
+    Lxx = torch.zeros(batch + (nx, nx), **kw)
+    Lu = torch.zeros(batch + (nu,), **kw)
+    Luu = torch.zeros(batch + (nu, nu), **kw)
+    Lxu = torch.zeros(batch + (nx, nu), **kw)
+    cost = torch.zeros(batch, **kw)
+    with_u = Ju is not None and not terminal
+
+    for name, term in spec.items():
+        if terminal and not term.terminal:
+            continue
+        r = res[name]
+        s = term.weight * (dt_scale if term.dt_scaled else 1.0)
+        g = act.grad(term.activation, r)
+        h = act.hess_diag(term.activation, r)
+        jx = Jx.get(name)
+        ju = Ju.get(name) if with_u else None
+        cost = cost + s * act.value(term.activation, r)
+        if jx is not None:
+            jxT = jx.transpose(-1, -2)
+            Lx = Lx + s * _mv(jxT, g)
+            Lxx = Lxx + s * (jxT @ (h[..., None] * jx))
+        if ju is not None:
+            juT = ju.transpose(-1, -2)
+            Lu = Lu + s * _mv(juT, g)
+            Luu = Luu + s * (juT @ (h[..., None] * ju))
+            if jx is not None:
+                Lxu = Lxu + s * (jx.transpose(-1, -2) @ (h[..., None] * ju))
+    return cost, Lx, Lu, Lxx, Lxu, Luu
+
+
+def _classical_analytic(model: PandaModel, W: OCPWeights, surface: bool,
+                        terminal: bool, ref, x, u):
+    """Knot forward + analytic derivatives: (xnext, res, Jx, Ju, Fx, Fu).
+
+    Dynamics derivatives come from the KKT implicit-function theorem
+    (core.dynamics.free_dynamics_derivs / contact_dynamics_derivs); residual
+    Jacobians are assembled from the frame Jacobian (d ee_p/dq == J_pos
+    exactly) plus one 7-tangent forward sweep through the FK-only chain for
+    the orientation log-map and the dJ/dq·v velocity term."""
+    dt = float(W.dt_ocp)
+    q, v = x[..., :7], x[..., 7:]
+    batch = x.shape[:-1]
+    kw = dict(dtype=x.dtype, device=x.device)
+
+    def kin_of(qq, fk2):
+        """Cost-residual kinematics (q-dependent parts): shared with the
+        dynamics q-sweep so FK tangents are computed once."""
+        Jp2, Jr2 = ee_jacobian(model, qq, fk_res=fk2)
+        ori = log3(ref.R_des.transpose(-1, -2) @ fk2.ee_R)
+        vel62 = torch.cat([_mv(Jp2, v), _mv(Jr2, v)], dim=-1)
+        return ori, vel62
+
+    if surface:
+        dd = contact_dynamics_derivs(
+            model, q, v, u, ref_pos=_contact_ref_pos(W, ref), nc1=True,
+            baumgarte_kp=W.contact_gains[0], baumgarte_kd=W.contact_gains[1],
+            damping_c=W.contact_inv_damping, extra_q_fn=kin_of)
+        acc, force, fk_res = dd.acc, dd.force, dd.fk_res
+        da_dx, da_du, df_dx, df_du = dd.da_dx, dd.da_du, dd.df_dx, dd.df_du
+        dori_dq, dvel6_dq = dd.extras_jac
+    else:
+        fd = free_dynamics_derivs(model, q, v, u)
+        acc, fk_res = fd.acc, fd.fk_res
+        da_dx, da_du = fd.da_dx, fd.da_du
+        force = df_dx = df_du = None
+        dori_dq, dvel6_dq = jac_last(lambda qq: kin_of(qq, fk(model, qq)), q)
+
+    v_next = v + dt * acc
+    q_next = q + dt * v_next
+    xnext = torch.cat([q_next, v_next], dim=-1)
+
+    # semi-implicit Euler chain rule (v+ = v + dt*a; q+ = q + dt*v+)
+    I7 = torch.eye(7, **kw).expand(batch + (7, 7))
+    Aq, Av = da_dx[..., :, :7], da_dx[..., :, 7:]
+    Fx = torch.cat([
+        torch.cat([I7 + (dt * dt) * Aq, dt * I7 + (dt * dt) * Av], dim=-1),
+        torch.cat([dt * Aq, I7 + dt * Av], dim=-1),
+    ], dim=-2)
+    Fu = torch.cat([(dt * dt) * da_du, dt * da_du], dim=-2)
+
+    Jp, Jr = ee_jacobian(model, q, fk_res=fk_res)
+    vel6 = torch.cat([_mv(Jp, v), _mv(Jr, v)], dim=-1)
+
+    res = _residual_values(model, W, surface, terminal, ref, x, u,
+                           fk_res, vel6, force)
+
+    Z37 = torch.zeros(batch + (3, 7), **kw)
+    eye14 = torch.eye(14, **kw).expand(batch + (14, 14))
+    J_ori = torch.cat([dori_dq, Z37], dim=-1)                  # (..., 3, 14)
+    J_vel6 = torch.cat([dvel6_dq, torch.cat([Jp, Jr], dim=-2)], dim=-1)
+    J_pos14 = torch.cat([Jp, Z37], dim=-1)                     # (..., 3, 14)
+
+    Jx: Dict[str, torch.Tensor] = {
+        "posture": eye14, "v_damp": eye14,
+        "ee_ori": J_ori, "w_damp": J_vel6,
+    }
+    Ju: Dict[str, torch.Tensor] = {}
+    if W.w_q_soft_limits > 0.0:
+        Jx["q_soft_limits"] = eye14
+    if not terminal:
+        Ju["tau_reg"] = I7
+        if W.w_tau_soft_limits > 0.0:
+            Ju["tau_soft_limits"] = I7
+    if not surface:
+        Jx["ee_pos"] = J_pos14
+    else:
+        Jx["ee_xy"] = J_pos14
+        Jx["ee_vxy"] = J_vel6
+        if W.w_plane_z > 0.0:
+            Jx["plane_z"] = J_pos14
+        if W.w_vz > 0.0:
+            Jx["vz_damp"] = J_vel6
+        if W.w_unilateral > 0.0:
+            Jx["unilateral"] = df_dx
+            Ju["unilateral"] = df_du
+        if W.w_fn > 0.0:
+            Jx["fn_track"] = df_dx
+            Ju["fn_track"] = df_du
+
+    return xnext, res, Jx, Ju, Fx, Fu
+
+
+# ---------------------------------------------------------------------------
+# augmented LPF knot (force-feedback)
+# ---------------------------------------------------------------------------
+
+def make_augmented_knot(model: PandaModel, W: OCPWeights,
+                        surface: bool) -> KnotModel:
+    """Augmented action model on y=(q,v,tau), control w.
+
+    y+ = [EulerKnot(x, tau); alpha*tau + (1-alpha)*w]; costs = inner knot cost
+    (dt-scaled) + discrete-level y-reg, w-reg, w-soft-limit terms.
+    Device and dtype follow ``model``'s tensors and the inputs.
+    """
+    if W.contact_model != "normal_1d":
+        raise ValueError(
+            f"contact_model {W.contact_model!r}: only the normal_1d contact "
+            "is ported")
+    spec = _make_spec(model, W, surface)
+    # drop inner regs if disabled
+    spec = dict(spec)
+    _dropped = []
+    if not W.use_inner_state_reg:
+        _dropped += ["posture", "v_damp"]
+    if not W.use_inner_tau_reg:
+        _dropped += ["tau_reg", "tau_soft_limits"]
+    for _name in _dropped:
+        spec.pop(_name, None)
+
+    nx, nu, nx_mb = 21, 7, 14
+    dt = float(W.dt_ocp)
+    alpha = float(np.clip(W.ff_alpha, 0.0, 0.999999))
+    beta = 1.0 - alpha
+
+    w_lim = np.asarray(W.tau_limits)
+    soft_lim = np.maximum(w_lim - max(W.tau_soft_limit_margin, 0.0), 1e-9)
+
+    outer_spec: Dict[str, CostTerm] = {}
+    if W.w_y > 0.0:
+        wy2 = [float(v) ** 2 for v in W.y_weights]
+        outer_spec["y_reg"] = CostTerm(W.w_y, act.wquad(wy2), False, True)
+    if W.w_w > 0.0:
+        outer_spec["w_reg"] = CostTerm(W.w_w, act.quad(), False, True)
+    if W.w_w_soft_limits > 0.0:
+        outer_spec["w_soft"] = CostTerm(
+            W.w_w_soft_limits, act.barrier(-soft_lim, soft_lim), False, True)
+
+    full_spec = {**spec, **outer_spec}
+
+    def _outer_residuals(res, ref, y, w):
+        if W.w_y > 0.0:
+            res["y_reg"] = y - ref.y_ref
+        if W.w_w > 0.0:
+            res["w_reg"] = w
+        if W.w_w_soft_limits > 0.0:
+            res["w_soft"] = w
+
+    def raw(ref, y, w, terminal: bool):
+        x_mb = y[..., :nx_mb]
+        tau = y[..., nx_mb:]
+        xnext_mb, res = _classical_raw(model, W, surface, terminal, ref, x_mb, tau)
+        for name in _dropped:
+            res.pop(name, None)
+        tau_next = alpha * tau + beta * w
+        ynext = torch.cat([xnext_mb, tau_next], dim=-1)
+        _outer_residuals(res, ref, y, w)
+        return ynext, res
+
+    def calc(ref, y, w):
+        ynext, res = raw(ref, y, w, False)
+        return ynext, _assemble_cost(full_spec, res, dt, False)
+
+    def _aug_analytic(ref, y, w, terminal: bool):
+        """Inner classical analytic pieces lifted to y=(x_mb, tau), u=w.
+
+        Fy = [[Fx_in, Fu_in], [0, alpha I]], Fw = [[0], [(1-alpha) I]];
+        inner residual Jacobians gain a tau column-block (the inner control
+        is the tau state), w appears only in the outer costs."""
+        batch = y.shape[:-1]
+        kw = dict(dtype=y.dtype, device=y.device)
+        x_mb = y[..., :nx_mb]
+        tau = y[..., nx_mb:]
+        xnext_mb, res, Jx_in, Ju_in, Fx_in, Fu_in = _classical_analytic(
+            model, W, surface, terminal, ref, x_mb, tau)
+        for name in _dropped:
+            res.pop(name, None)
+            Jx_in.pop(name, None)
+            Ju_in.pop(name, None)
+        tau_next = alpha * tau + beta * w
+        ynext = torch.cat([xnext_mb, tau_next], dim=-1)
+
+        I7 = torch.eye(nu, **kw).expand(batch + (nu, nu))
+        Z7x14 = torch.zeros(batch + (nu, nx_mb), **kw)
+        Fy = torch.cat([
+            torch.cat([Fx_in, Fu_in], dim=-1),
+            torch.cat([Z7x14, alpha * I7], dim=-1),
+        ], dim=-2)
+        Fw = torch.cat([torch.zeros(batch + (nx_mb, nu), **kw), beta * I7],
+                       dim=-2)
+
+        Jy: Dict[str, torch.Tensor] = {}
+        for name in res:
+            jx = Jx_in.get(name)
+            ju = Ju_in.get(name)
+            if jx is None and ju is None:
+                continue
+            nr = res[name].shape[-1]
+            jx = jx if jx is not None else torch.zeros(batch + (nr, nx_mb), **kw)
+            ju = ju if ju is not None else torch.zeros(batch + (nr, nu), **kw)
+            Jy[name] = torch.cat([jx, ju], dim=-1)
+        Jw: Dict[str, torch.Tensor] = {}
+        _outer_residuals(res, ref, y, w)
+        if W.w_y > 0.0:
+            Jy["y_reg"] = torch.eye(nx, **kw).expand(batch + (nx, nx))
+        if W.w_w > 0.0:
+            Jw["w_reg"] = I7
+        if W.w_w_soft_limits > 0.0:
+            Jw["w_soft"] = I7
+        return ynext, res, Jy, Jw, Fy, Fw
+
+    def diff(ref, y, w):
+        ynext, res, Jy, Jw, Fy, Fw = _aug_analytic(ref, y, w, False)
+        cost, Lx, Lu, Lxx, Lxu, Luu = _assemble_gn(
+            full_spec, res, Jy, Jw, dt, False, nx, nu, y)
+        return KnotDeriv(ynext, cost, Fy, Fw, Lx, Lu, Lxx, Lxu, Luu)
+
+    def term_calc(ref, y):
+        w0 = torch.zeros_like(y[..., :nu])
+        _, res = raw(ref, y, w0, True)
+        # terminal: the augmented model calls the inner running calc, so the
+        # inner costs keep their dt scale; outer costs as-is.
+        return _assemble_cost(full_spec, res, dt, True)
+
+    def term_diff(ref, y):
+        w0 = torch.zeros_like(y[..., :nu])
+        _, res, Jy, _, _, _ = _aug_analytic(ref, y, w0, True)
+        cost, Lx, _, Lxx, _, _ = _assemble_gn(
+            full_spec, res, Jy, None, dt, True, nx, nu, y)
+        return cost, Lx, Lxx
+
+    lim = tuple(float(t) for t in W.tau_limits)
+    return KnotModel(calc, diff, term_calc, term_diff, nx, nu,
+                     tuple(-t for t in lim), lim)

@@ -1,0 +1,94 @@
+"""Build and load the package's CUDA kernels.
+
+Each ``csrc/*.cu`` has a plain C interface.  At first use every source is
+compiled by ``nvcc`` for ``sm_90a`` into ``ffmpc_tpu_torch/_build/``, keyed
+by a hash of the source and flags, and loaded with ``ctypes``.  Nothing is built at import.  A failed build
+raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, NamedTuple
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _find_nvcc() -> str:
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH): the CUDA kernels cannot be built on this machine")
+    return found
+
+
+def _target(src: Path) -> Path:
+    h = hashlib.sha256()
+    h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+
+
+class BuildResult(NamedTuple):
+    paths: Dict[str, Path]   # source stem -> shared library
+    logs: Dict[str, str]     # source stem -> nvcc output (ptxas resource usage)
+
+
+def build_all() -> BuildResult:
+    """Compile every ``csrc/*.cu`` that has no up-to-date library yet.  The
+    compiler's output (each kernel's registers, shared memory and spills,
+    ``-Xptxas -v``) is kept beside the library, so it can be read back
+    whether the library was built now or earlier."""
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    if not sources:
+        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths, logs = {}, {}
+    for src in sources:
+        lib = _target(src)
+        log_file = lib.with_suffix(".log")
+        if not lib.exists():
+            tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+            p = subprocess.run(
+                [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if p.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {src.name} (exit {p.returncode}):\n{p.stdout}")
+            log_file.write_text(p.stdout)
+            os.replace(tmp, lib)
+        paths[src.stem] = lib
+        logs[src.stem] = log_file.read_text()
+    return BuildResult(paths, logs)
+
+
+def load_library(stem: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<stem>.cu`` (built on first use)."""
+    lib = _libs.get(stem)
+    if lib is None:
+        paths = build_all().paths
+        if stem not in paths:
+            raise RuntimeError(f"no CUDA source csrc/{stem}.cu")
+        lib = ctypes.CDLL(str(paths[stem]))
+        _libs[stem] = lib
+    return lib
