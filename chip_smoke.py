@@ -2,10 +2,13 @@
 
 Drives the port's main path (a batch of warm-started, full-horizon BoxFDDP
 solves of the flagship force-feedback contact problem: nx=21, nu=7, N=40,
-10 iterations, 10 step lengths, float32, B=256 and B=1024) through
+10 iterations, 10 step lengths, float32, B=256 and B=1024, the backward sweep
+and the line-search rollout on their CUDA kernels) through
 `ffmpc_tpu_torch.run.batch_runner.make_batched_solve_fn`, after building every
 CUDA kernel from `ffmpc_tpu_torch/csrc/` and holding each against its plain
-PyTorch version on the card.  Each phase prints one JSON line; any failure
+PyTorch version on the card.  Phases: device, build, kernels,
+small_reference, golden (the framework-free solver fixture), solve, stages
+(where one iteration's time goes).  Each phase prints JSON lines; any failure
 raises, so the exit code is non-zero and the final line is not printed.
 
 The last line is `{"ok": true, "device": {...}}`; the line before it is
@@ -22,6 +25,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -32,12 +36,16 @@ from ffmpc_tpu_torch.ocp.problem import build_problem_refs
 from ffmpc_tpu_torch.ocp.weights import flagship_trajectory, flagship_weights
 from ffmpc_tpu_torch.mpc.controllers import make_vertical_down_R
 from ffmpc_tpu_torch.run.batch_runner import EpisodeConfig, make_batched_solve_fn
+from ffmpc_tpu_torch.ocp.weights import ProblemRefs
 from ffmpc_tpu_torch.solver import _cuda_build
 from ffmpc_tpu_torch.solver.backward_cuda import (backward_box,
                                                   backward_box_reference)
-from ffmpc_tpu_torch.solver.fddp import FDDPSettings, backward_inputs
+from ffmpc_tpu_torch.solver.fddp import (FDDPSettings, KGAIN_REG, accept_step,
+                                         backward_inputs, solve as fddp_solve)
+from ffmpc_tpu_torch.solver.rollout_cuda import (pack_knot_consts, rollout,
+                                                 rollout_reference)
 
-NX, NU, HORIZON, ITERS, BOXQP_ITERS = 21, 7, 40, 10, 8
+NX, NU, HORIZON, ITERS, BOXQP_ITERS, N_ALPHAS = 21, 7, 40, 10, 8, 10
 BATCHES = (256, 1024)
 FIELDS = ("K", "kff", "qu2", "dg", "dq", "bad", "w_all")
 
@@ -96,8 +104,36 @@ F32_SAME_FREE_RTOL = 1e-3
 # length) must agree on at least this share.
 MIN_AGREE_SOLVE = 0.99
 LEADING_SLACK = 1.0
-SOLVE_REPEATS = 3
+SOLVE_REPEATS = 3          # timed solves of the main path (kernel modes)
+PLAIN_REPEATS = 1          # timed solves of the slower yardstick modes
 QP_FIELDS = ("kff", "qu2", "dg", "dq")
+
+# Rollout kernel vs its plain version, errors per output field against the
+# field's largest finite magnitude.
+# float64: rtol 5e-9 / atol 1e-10, the bar of the JAX package's kernel-vs-scan
+# test (tests/test_rollout_pallas.py): both evaluate the same formulas, summed
+# in another order, through 40 knots of stiff contact dynamics (Baumgarte
+# gains 145 / 85, inverse damping 1e-8).  The (problem, step length) rows with
+# a non-finite cost must be the same set exactly.
+ROLLOUT_TOL_F64 = dict(rtol=5e-9, atol=1e-10)
+# float32: two float32 evaluations of 40 stiff knots cannot agree better than
+# either agrees with the exact result, so the yardstick is measured per
+# problem on the same inputs: the plain float32 version's relative distance
+# from the plain float64 version.  The median over problems of the kernel's
+# distance from plain float32 is gated at ROLLOUT_F32_FACTOR times the median
+# yardstick (+ ROLLOUT_F32_FLOOR); the problems outside that factor of their
+# own yardstick are counted and printed, and must stay under
+# 1 - ROLLOUT_MIN_AGREE_F32 of the batch (a wrong index or sign leaves none
+# inside).  Non-finite cost rows must agree on ROLLOUT_NONFINITE_AGREE of the
+# (problem, step length) rows: a step length on the edge of blowing up may go
+# over in one float32 evaluation only.
+ROLLOUT_F32_FACTOR, ROLLOUT_F32_FLOOR = 4.0, 1e-6
+ROLLOUT_MIN_AGREE_F32 = 0.9
+ROLLOUT_NONFINITE_AGREE = 0.99
+ROLLOUT_FIELDS = ("xs_try", "us_try", "cost_try")
+
+# the solver golden fixture's force-feedback case (tests/test_solver_golden.py)
+GOLDEN_FIXTURE = "tests/fixtures/solver_golden.npz"
 
 
 def emit(obj):
@@ -185,6 +221,32 @@ def backward_bytes(args, outs):
     return sum(a.numel() * a.element_size() for a in list(args) + list(outs))
 
 
+def knot_calc_flops(nx=NX, nu=NU, nq=7):
+    """One knot evaluation (forward kinematics, frame Jacobian, bias forces,
+    mass matrix, Cholesky, 1-row contact KKT, Euler step, residuals and
+    activations): the count of the JAX package's utils/flops.py::
+    knot_calc_flops, copied so this script imports nothing of it."""
+    chain = (70 * nq + 120 * nq + 130 * nq + 30 * nq * nq
+             + (nq ** 3 // 3 + nq * nq) + (4 * nq * nq + 1 + 2 * nq * nq) + 8 * nq)
+    costs = 12 * 30 + 150 + 2 * nx + 2 * nu
+    return float(chain + costs)
+
+
+def rollout_flops(B, N, A):
+    """Operations of the rollout on these shapes: per (problem, step length)
+    N knots of policy update (2 nu nx), clip and knot evaluation, plus the
+    terminal evaluation.  The work does not depend on the data."""
+    knot = 2 * NU * NX + 2 * NU + knot_calc_flops()
+    return B * A * (N * knot + knot_calc_flops())
+
+
+def rollout_bytes(args, outs):
+    """Each input read once, each output written once."""
+    x0, xs, us, K, kff, fs, feasible, refs_run, ref_T = args
+    tensors = [x0, xs, us, K, kff, fs, feasible, *refs_run, *ref_T, *outs]
+    return sum(a.numel() * a.element_size() for a in tensors)
+
+
 def flagship(dtype, device="cuda"):
     model = make_panda_model("plant", dtype=dtype, device=device)
     W = flagship_weights()
@@ -204,24 +266,89 @@ def warm_start_args(B, q0, tau_g, rng, horizon=HORIZON, dtype=np.float32):
     return ts, y0s, xs, us
 
 
-def main_path_backward_args(B):
-    """The backward sweep's inputs exactly as the first iteration of the
-    flagship float32 solve produces them."""
-    dtype = torch.float32
+def main_path_first_iteration(B, dtype=torch.float32):
+    """The flagship solve's first iteration at batch B, as the main path
+    builds it: warm starts as `bench.py` builds them (seed 0), the problem
+    references, and the derivative pass's backward-sweep inputs."""
     model, W, traj, ep, q0 = flagship(dtype)
     knot = make_augmented_knot(model, W, surface=True)
     tau_g = gravity_torque(model, torch.as_tensor(q0, dtype=dtype, device="cuda")).cpu().numpy()
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
     ts, y0s, xs, us = (torch.as_tensor(a, device="cuda") for a in
-                       warm_start_args(B, q0, tau_g, np.random.default_rng(0)))
+                       warm_start_args(B, q0, tau_g, np.random.default_rng(0), dtype=np_dtype))
     q_nom = torch.as_tensor(q0, dtype=dtype, device="cuda")
     x_reg = torch.cat([q_nom, torch.zeros(7, dtype=dtype, device="cuda")])
     refs_run, ref_T = build_problem_refs(
         traj, ts, HORIZON, W.dt_ocp, x_reg, gravity_torque(model, y0s[:, :7]),
         make_vertical_down_R(), y_ref=y0s, dtype=dtype, device="cuda")
+    refs_run = ProblemRefs(*(a.contiguous() for a in refs_run))
+    ref_T = ProblemRefs(*(a.contiguous() for a in ref_T))
     feasible = torch.zeros(B, dtype=torch.bool, device="cuda")
     bi = backward_inputs(knot, refs_run, ref_T, y0s, xs, us, feasible)
+    return dict(knot=knot, bi=bi, refs_run=refs_run, ref_T=ref_T, x0=y0s,
+                xs=xs, us=us, cost_cur=bi.cost_cur)
+
+
+def main_path_backward_args(B):
+    """The backward sweep's inputs exactly as the first iteration of the
+    flagship float32 solve produces them."""
+    it = main_path_first_iteration(B)
+    reg = torch.full((B,), 1e-9, dtype=torch.float32, device="cuda")
+    return list(it["bi"].args) + [reg, reg]
+
+
+def main_path_rollout_args(B, dtype=torch.float32):
+    """The rollout's inputs as the first iteration of the flagship solve
+    produces them: K and kff from the backward kernel.  Returns
+    (knot, consts, args)."""
+    it = main_path_first_iteration(B, dtype)
     reg = torch.full((B,), 1e-9, dtype=dtype, device="cuda")
-    return list(bi.args) + [reg, reg]
+    out = backward_box(*it["bi"].args, reg, reg, boxqp_iters=BOXQP_ITERS,
+                       kgain_reg=KGAIN_REG)
+    knot = it["knot"]
+    consts = pack_knot_consts(knot.model, knot.W, knot.surface, dtype)
+    args = (it["x0"], it["xs"], it["us"], out[0], out[1], it["bi"].fs,
+            it["bi"].feasible, it["refs_run"], it["ref_T"])
+    return knot, consts, args
+
+
+def seeded_rollout_args(B, N, dtype, seed):
+    """Seeded rollout inputs, the recipe of the JAX package's fused-rollout
+    test (tests/test_rollout_pallas.py) at the flagship knot and horizon:
+    states around the neutral pose, controls around gravity torque, random
+    gains, feed-forwards and gaps, every other problem feasible."""
+    model, W, traj, ep, q0 = flagship(dtype)
+    knot = make_augmented_knot(model, W, surface=True)
+    rng = np.random.default_rng(seed)
+
+    def T(a):
+        return torch.as_tensor(a, dtype=dtype, device="cuda").contiguous()
+
+    q = torch.as_tensor(q0, dtype=dtype, device="cuda")
+    tau_g = gravity_torque(model, q)
+    y0 = torch.cat([q, torch.zeros(7, dtype=dtype, device="cuda"), tau_g])
+    x0 = (y0[None] + 0.05 * T(rng.normal(size=(B, NX)))).contiguous()
+    xs = (x0[:, None].repeat(1, N + 1, 1) + 0.02 * T(rng.normal(size=(B, N + 1, NX)))).contiguous()
+    us = (tau_g.repeat(B, N, 1) + 2.0 * T(rng.normal(size=(B, N, NU)))).contiguous()
+    K = 0.1 * T(rng.normal(size=(B, N, NU, NX)))
+    kff = T(rng.normal(size=(B, N, NU)))
+    fs = 0.1 * T(rng.normal(size=(B, N + 1, NX)))
+    feasible = torch.arange(B, device="cuda") % 2 == 1
+    x_reg = torch.cat([q, torch.zeros(7, dtype=dtype, device="cuda")])
+    refs_run, ref_T = build_problem_refs(
+        traj, torch.full((B,), 1.2, dtype=dtype, device="cuda"), N, W.dt_ocp, x_reg,
+        tau_g, make_vertical_down_R(), y_ref=x0, dtype=dtype, device="cuda")
+    refs_run = ProblemRefs(*(a.contiguous() for a in refs_run))
+    ref_T = ProblemRefs(*(a.contiguous() for a in ref_T))
+    consts = pack_knot_consts(knot.model, knot.W, knot.surface, dtype)
+    return knot, consts, (x0, xs, us, K, kff, fs, feasible, refs_run, ref_T)
+
+
+def to_double(args):
+    x0, xs, us, K, kff, fs, feasible, refs_run, ref_T = args
+    return ((x0.double(), xs.double(), us.double(), K.double(), kff.double(),
+             fs.double(), feasible, ProblemRefs(*(a.double() for a in refs_run)),
+             ProblemRefs(*(a.double() for a in ref_T))))
 
 
 def phase_device():
@@ -241,18 +368,36 @@ def phase_device():
     return smi
 
 
+def ptxas_usage(log):
+    """Per compiled kernel: registers, shared memory, stack frame and spill
+    bytes, as `nvcc -Xptxas -v` reports them."""
+    usage = []
+    for block in re.split(r"Compiling entry function '", log)[1:]:
+        name = block.split("'", 1)[0]
+        rec = {"function": name}
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", block)
+        if m:
+            rec.update(stack_frame_bytes=int(m[1]), spill_store_bytes=int(m[2]),
+                       spill_load_bytes=int(m[3]))
+        m = re.search(r"Used (\d+) registers", block)
+        if m:
+            rec["registers"] = int(m[1])
+        m = re.search(r"Used \d+ registers[^\n]*?(\d+) bytes smem", block)
+        rec["smem_bytes"] = int(m[1]) if m else 0
+        usage.append(rec)
+    return usage
+
+
 def phase_build():
     t0 = time.perf_counter()
     built = _cuda_build.build_all()
-    _cuda_build.load_library("backward_sweep")
-    # per kernel, in the order compiled (float64 then float32 instantiation);
-    # read from the log kept beside the library, so also on a cached build
-    usage = [dict(zip(("registers", "smem_bytes"), map(int, m)))
-             for log in built.logs.values()
-             for m in re.findall(r"Used (\d+) registers.*?(\d+) bytes smem", log)]
+    for stem in built.paths:
+        _cuda_build.load_library(stem)
+    # read from the log kept beside each library, so also on a cached build
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "libraries": sorted(p.name for p in built.paths.values()),
-          "ptxas": usage})
+          "ptxas": {stem: ptxas_usage(log) for stem, log in built.logs.items()}})
 
 
 def phase_kernels():
@@ -360,6 +505,117 @@ def phase_kernels():
             "by_batch": {str(b): timing[b] for b in BATCHES}}
 
 
+def rollout_errors(out_a, out_b):
+    """Per field: (per-problem max|a - b| over entries finite in both,
+    per-problem max|b| over its finite entries), float64 (B,)."""
+    B = out_b[0].shape[0]
+    res = {}
+    for name, a, b in zip(ROLLOUT_FIELDS, out_a, out_b):
+        a, b = a.double().reshape(B, -1), b.double().reshape(B, -1)
+        both = torch.isfinite(a) & torch.isfinite(b)
+        zero = torch.zeros_like(b)
+        err = torch.where(both, (a - b).abs(), zero).amax(dim=1)
+        scale = torch.where(torch.isfinite(b), b.abs(), zero).amax(dim=1)
+        res[name] = (err, scale)
+    return res
+
+
+def phase_rollout_kernel():
+    """The rollout kernel against its plain version on the card at N=40,
+    A=10, B=1024: seeded inputs and the main path's own first-iteration
+    inputs, float64 and float32; then its time against the plain version's
+    at both batch sizes.  Returns the rollout entry of the `kernels` line."""
+    B = BATCHES[-1]
+    checks, failures = [], []
+
+    def check(label, knot, consts, args, knot64=None):
+        f64 = args[1].dtype == torch.float64
+        out_k = rollout(knot, consts, *args, N_ALPHAS)
+        torch.cuda.synchronize()
+        out_r = rollout_reference(knot, *args, N_ALPHAS)
+        torch.cuda.synchronize()
+        errs = rollout_errors(out_k, out_r)
+        nf_k, nf_r = (~torch.isfinite(o[2]) for o in (out_k, out_r))
+        rec = {"case": label, "B": int(args[1].shape[0]), "N": int(args[2].shape[1]),
+               "A": N_ALPHAS, "dtype": "float64" if f64 else "float32",
+               "nonfinite_cost_rows": int(nf_r.sum()),
+               "nonfinite_rows_agree_share": float((nf_k == nf_r).double().mean()),
+               "max_abs_err": {n: float(e.max()) for n, (e, _) in errs.items()},
+               "scale": {n: float(sc.max()) for n, (_, sc) in errs.items()}}
+        if f64:
+            ok = all(bool((torch.isfinite(a) == torch.isfinite(b)).all())
+                     for a, b in zip(out_k, out_r))
+            rec["nonfinite_sets_equal"] = ok
+            for n, (e, sc) in errs.items():
+                ok = ok and (float(e.max()) <= ROLLOUT_TOL_F64["atol"]
+                             + ROLLOUT_TOL_F64["rtol"] * float(sc.max()))
+        else:
+            out_64 = rollout_reference(knot64, *to_double(args), N_ALPHAS)
+            yard = rollout_errors(out_r, out_64)
+            ok = rec["nonfinite_rows_agree_share"] >= ROLLOUT_NONFINITE_AGREE
+            agree = torch.ones(rec["B"], dtype=torch.bool, device="cuda")
+            rel = {}
+            for n, (e, sc) in errs.items():
+                sc = sc.clamp_min(1e-30)
+                rel_k, rel_p = e / sc, yard[n][0] / sc
+                agree &= rel_k <= ROLLOUT_F32_FACTOR * rel_p + ROLLOUT_F32_FLOOR
+                rel[n] = [float(rel_k.median()), float(rel_p.median()),
+                          float(rel_k.max()), float(rel_p.max())]
+                ok = ok and (rel[n][0] <= ROLLOUT_F32_FACTOR * rel[n][1]
+                             + ROLLOUT_F32_FLOOR)
+            rec["rel_err_median_kernel_vs_plain32__plain32_vs_plain64__max_max"] = rel
+            rec["agree_share"] = float(agree.double().mean())
+            ok = ok and rec["agree_share"] >= ROLLOUT_MIN_AGREE_F32
+        rec["ok"] = bool(ok)
+        checks.append(rec)
+        if not ok:
+            failures.append(label + "/" + rec["dtype"])
+        return rec
+
+    knot64 = make_augmented_knot(flagship(torch.float64)[0], flagship_weights(), surface=True)
+    for dtype in (torch.float64, torch.float32):
+        knot, consts, args = seeded_rollout_args(B, HORIZON, dtype, 7)
+        check("seeded", knot, consts, args, knot64)
+    main_rec = None
+    for dtype in (torch.float64, torch.float32):
+        knot, consts, args = main_path_rollout_args(B, dtype)
+        rec = check("main_path_first_iteration", knot, consts, args, knot64)
+        if dtype == torch.float32:
+            main_rec = rec
+
+    timing = {}
+    for b in BATCHES:
+        knot, consts, args = main_path_rollout_args(b)
+        outs = rollout(knot, consts, *args, N_ALPHAS)
+        ms = cuda_time_ms(lambda: rollout(knot, consts, *args, N_ALPHAS))
+        plain_ms = cuda_time_ms(lambda: rollout_reference(knot, *args, N_ALPHAS),
+                                reps=1, rounds=3)
+        byte_ms = rollout_bytes(args, outs) / PEAK_BYTES_PER_S * 1e3
+        flop_ms = rollout_flops(b, HORIZON, N_ALPHAS) / PEAK_FP32_FLOPS * 1e3
+        timing[b] = {"ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": max(byte_ms, flop_ms),
+                     "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
+                     "bytes_ms": byte_ms, "operations_ms": flop_ms}
+    emit({"phase": "kernels", "kernel": "rollout", "checks": checks,
+          "timing_float32": timing})
+    if failures:
+        raise RuntimeError(f"rollout kernel disagrees with its plain version: {failures}")
+    t = timing[B]
+    return {"name": "rollout", "route": "cuda",
+            "source": "ffmpc_tpu_torch/csrc/rollout.cu",
+            "replaces": "ffmpc_tpu/solver/rollout_pallas.py:63",
+            "launches": None,
+            "max_abs_err": max(main_rec["max_abs_err"].values()),
+            "max_abs_err_by_field": main_rec["max_abs_err"],
+            "max_rel_err_by_field": {n: e / max(main_rec["scale"][n], 1e-30)
+                                     for n, e in main_rec["max_abs_err"].items()},
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "shape": {"B": B, "N": HORIZON, "A": N_ALPHAS, "nx": NX, "nu": NU,
+                      "dtype": "float32"},
+            "by_batch": {str(b): timing[b] for b in BATCHES}}
+
+
 def assert_result_ok(res, B, N):
     shapes = dict(xs=(B, N + 1, NX), us=(B, N, NU), K=(B, N, NU, NX), k=(B, N, NU),
                   cost=(B,), stop=(B,), iters=(B,), converged=(B,), diverged=(B,),
@@ -373,9 +629,10 @@ def assert_result_ok(res, B, N):
 
 
 def phase_small_reference():
-    """Correctness on a small input: float64, B=4, N=5, kernel mode against
-    plain mode on the card.  rtol 1e-6 / atol 1e-7 scaled by each field's
-    largest magnitude (reassociated sums; the bar of the CPU tests)."""
+    """Correctness on a small input: float64, B=4, N=5, both kernels on
+    (backward and rollout mode "kernel") against both plain versions on the
+    card.  rtol 1e-6 / atol 1e-7 scaled by each field's largest magnitude
+    (reassociated sums; the bar of the CPU tests)."""
     dtype = torch.float64
     model, W, traj, ep, q0 = flagship(dtype)
     ep = EpisodeConfig(controller="force_feedback", horizon=5)
@@ -386,8 +643,8 @@ def phase_small_reference():
     res = {}
     for mode in ("kernel", "plain"):
         solve = make_batched_solve_fn(
-            model, W, FDDPSettings(max_iters=3, backward_mode=mode), traj, ep, q0,
-            dtype=dtype, device="cuda")
+            model, W, FDDPSettings(max_iters=3, backward_mode=mode, rollout_mode=mode),
+            traj, ep, q0, dtype=dtype, device="cuda")
         res[mode] = solve(ts, y0s, xs, us)
     torch.cuda.synchronize()
     assert_result_ok(res["kernel"], 4, 5)
@@ -404,6 +661,49 @@ def phase_small_reference():
             raise RuntimeError(f"small f64 solve: {name} differs")
     emit({"phase": "small_reference", "dtype": "float64", "B": 4, "N": 5,
           "max_rel_err": worst, "iters": res["kernel"].iters.tolist()})
+
+
+def phase_golden():
+    """The force-feedback contact case of the framework-free solver fixture
+    (tests/test_solver_golden.py: float64, N=12, 10 iterations, its own
+    weights), solved on the card with both kernels, at that test's bar: us
+    atol 1e-6, cost rtol 1e-8.  The measured distance is printed."""
+    from ffmpc_tpu_torch.ocp.weights import OCPWeights
+    dtype = torch.float64
+    model = make_panda_model("plant", dtype=dtype, device="cuda")
+    q0 = torch.as_tensor(KEYFRAMES["neutral"], dtype=dtype, device="cuda")
+    tau_g = gravity_torque(model, q0)
+    W = OCPWeights(dt_ocp=0.01, w_ee_pos=1.2e3, w_q_soft_limits=8.0,
+                   w_tau_soft_limits=2.0, w_plane_z=1.2e3, w_vz=5.0e2,
+                   contact_gains=(140.0, 80.0), fn_des=22.0, w_fn=28.0,
+                   ff_alpha=float(np.exp(-2 * np.pi * 25.0 * 0.01)),
+                   w_w=6.0e-4, w_w_soft_limits=2.0, w_y=8.0e-4)
+    N = 12
+    x0 = torch.cat([q0, torch.zeros(7, dtype=dtype, device="cuda"), tau_g])
+    refs_run, ref_T = build_problem_refs(
+        flagship_trajectory(), torch.tensor([1.2], dtype=dtype, device="cuda"), N,
+        W.dt_ocp, torch.cat([q0, torch.zeros(7, dtype=dtype, device="cuda")]), tau_g,
+        make_vertical_down_R(), y_ref=x0, dtype=dtype, device="cuda")
+    knot = make_augmented_knot(model, W, surface=True)
+    launches = (backward_box.launches, rollout.launches)
+    res = fddp_solve(knot, refs_run, ref_T, x0[None], x0.repeat(1, N + 1, 1),
+                     tau_g.repeat(1, N, 1), FDDPSettings(max_iters=10))
+    torch.cuda.synchronize()
+    with np.load(Path(__file__).resolve().parent / GOLDEN_FIXTURE) as z:
+        us_ref = z["ff_contact_vector_us"]
+        cost_ref = float(z["ff_contact_vector_cost"])
+    du = float(np.abs(res.us[0].cpu().numpy() - us_ref).max())
+    dcost = abs(float(res.cost[0]) - cost_ref) / abs(cost_ref)
+    rec = {"phase": "golden", "dtype": "float64", "N": N,
+           "iters": int(res.iters[0]), "alpha_hist": res.alpha_hist[0].tolist(),
+           "max_abs_du": du, "rel_dcost": dcost,
+           "launches": {"backward_sweep": backward_box.launches - launches[0],
+                        "rollout": rollout.launches - launches[1]}}
+    emit(rec)
+    if not (du <= 1e-6 and dcost <= 1e-8):
+        raise RuntimeError(f"golden fixture: max|du| {du}, relative cost {dcost}")
+    if min(rec["launches"].values()) < rec["iters"]:
+        raise RuntimeError(f"golden fixture: kernels not launched: {rec['launches']}")
 
 
 def decisions_and_distance(a, b):
@@ -449,11 +749,15 @@ def rate_record(B, times):
 
 
 def phase_solve():
-    """The main path at full width, kernel mode, with the launch count read
-    around its first solve; then plain mode on the same inputs for the
-    comparison.  Each mode first runs one untimed one-iteration solve (first
-    uses of the libraries and of `torch.func`), then SOLVE_REPEATS timed
-    solves of the same inputs; the median and the range are printed.
+    """The main path at full width: both kernels (backward and rollout mode
+    "kernel") at B=256 and B=1024, with the launch counts read around its
+    first timed solve; then the yardstick, both plain versions, on the same
+    inputs; and at B=256 the earlier path with the backward kernel alone
+    (plain rollout), at a smaller depth.  Each mode first runs one untimed
+    one-iteration solve (first uses of the libraries and of `torch.func`),
+    then timed solves of the same inputs (SOLVE_REPEATS for the main path,
+    PLAIN_REPEATS for the slower modes); the median and the range are
+    printed.
 
     What the comparison can hold: the flagship problem barely penalizes the
     unfiltered torque w (weight 6e-4), so from these cold warm starts its
@@ -462,51 +766,70 @@ def phase_solve():
     runs end up to the full box width (174 Nm) apart in `us` at nearly the
     same cost.  That holds between float32 and float64 runs of the SAME plain
     code, which is measured here at the smaller batch as the yardstick.  So
-    the gates are:
+    the gates, for each kernel path against the plain one, are:
       - same iterations and flags on MIN_AGREE_SOLVE of the problems;
       - the same accepted step length in the first iteration (where both
         modes start from identical inputs) on MIN_AGREE_SOLVE of them;
-      - at the smaller batch, kernel mode follows plain mode's step lengths
-        at least as long as plain float32 follows plain float64, less
-        LEADING_SLACK iterations (mean over problems of the number of
+      - at the smaller batch, the kernel path follows plain mode's step
+        lengths at least as long as plain float32 follows plain float64,
+        less LEADING_SLACK iterations (mean over problems of the number of
         leading iterations with equal step lengths);
-      - a median relative cost difference between kernel mode and plain mode
-        of at most twice that between plain float32 and plain float64, plus
-        1e-3.
-    max|du| is stated, not gated."""
+      - at the smaller batch, a median relative cost difference between the
+        kernel path and plain mode of at most twice that between plain
+        float32 and plain float64, plus 1e-3.
+    max|du| is stated, not gated.  Returns the main path's launch counts per
+    batch size."""
     dtype = torch.float32
     model, W, traj, ep, q0 = flagship(dtype)
     tau_g = gravity_torque(model, torch.as_tensor(q0, dtype=dtype, device="cuda")).cpu().numpy()
 
-    def solver(mode, dt, mdl, iters=ITERS):
+    def solver(bw, ro, dt=dtype, mdl=model, iters=ITERS):
         return make_batched_solve_fn(
-            mdl, W, FDDPSettings(max_iters=iters, backward_mode=mode),
+            mdl, W, FDDPSettings(max_iters=iters, backward_mode=bw, rollout_mode=ro),
             traj, ep, q0, surface=True, dtype=dt, device="cuda")
 
-    solve_plain64 = solver("plain", torch.float64, flagship(torch.float64)[0])
+    def run_mode(bw, ro, args, repeats):
+        """Warm-up, then timed solves; launch counts of the first timed
+        solve, set to 0 just before it and read just after."""
+        solver(bw, ro, iters=1)(*args)
+        solve = solver(bw, ro)
+        backward_box.launches = 0
+        rollout.launches = 0
+        res, ms = timed_solves(solve, args, 1)
+        counts = {"backward_sweep": backward_box.launches, "rollout": rollout.launches}
+        ms += timed_solves(solve, args, repeats - 1)[1]
+        assert_result_ok(res, args[1].shape[0], HORIZON)
+        return res, ms, counts
+
+    def gate(name, rec, kp, p64):
+        ok = (kp["same_decisions_share"] >= MIN_AGREE_SOLVE
+              and kp["same_step_share_by_iteration"][0] >= MIN_AGREE_SOLVE)
+        if p64 is not None:
+            ok = ok and (kp["median_rel_dcost"]
+                         <= 2.0 * p64["median_rel_dcost"] + 1e-3)
+            ok = ok and (kp["mean_leading_iterations_with_same_step"]
+                         >= p64["mean_leading_iterations_with_same_step"]
+                         - LEADING_SLACK)
+        if not ok:
+            raise RuntimeError(f"B={rec['B']}: {name} and plain mode disagree: {rec}")
+
+    solve_plain64 = solver("plain", "plain", torch.float64, flagship(torch.float64)[0])
     rng = np.random.default_rng(0)
     launches = {}
     for B in BATCHES:
         args = warm_start_args(B, q0, tau_g, rng)
-
-        solver("kernel", dtype, model, iters=1)(*args)       # untimed warm-up
-        solve_k = solver("kernel", dtype, model)
-        backward_box.launches = 0
-        res_k, ms_k = timed_solves(solve_k, args, 1)
-        launches[B] = backward_box.launches
-        ms_k += timed_solves(solve_k, args, SOLVE_REPEATS - 1)[1]
-
-        solver("plain", dtype, model, iters=1)(*args)        # untimed warm-up
-        res_p, ms_p = timed_solves(solver("plain", dtype, model), args)
-
-        assert_result_ok(res_k, B, HORIZON)
+        res_k, ms_k, counts = run_mode("kernel", "kernel", args, SOLVE_REPEATS)
+        launches[B] = counts
         iters_run = int(res_k.iters.max())
-        if launches[B] < iters_run or launches[B] < 1:
+        if min(counts.values()) < max(iters_run, 1):
             raise RuntimeError(
-                f"B={B}: {launches[B]} kernel launches for {iters_run} iterations")
+                f"B={B}: kernel launches {counts} for {iters_run} iterations")
+        res_p, ms_p, counts_p = run_mode("plain", "plain", args, PLAIN_REPEATS)
+        if any(counts_p.values()):
+            raise RuntimeError(f"B={B}: plain mode launched kernels: {counts_p}")
         kp = decisions_and_distance(res_k, res_p)
         rec = {"phase": "solve", "B": B, "N": HORIZON, "max_iters": ITERS,
-               "dtype": "float32", "kernel_launches": launches[B],
+               "dtype": "float32", "kernel_launches": counts,
                "mean_iters": float(res_k.iters.double().mean()),
                "converged": int(res_k.converged.sum()),
                "diverged": int(res_k.diverged.sum()),
@@ -516,32 +839,100 @@ def phase_solve():
                "plain_mode": rate_record(B, ms_p),
                "kernel32_vs_plain32": kp,
                "min_same_decisions_share": MIN_AGREE_SOLVE}
-        ok = (kp["same_decisions_share"] >= MIN_AGREE_SOLVE
-              and kp["same_step_share_by_iteration"][0] >= MIN_AGREE_SOLVE)
+        p64 = None
         if B == BATCHES[0]:
             p64 = decisions_and_distance(res_p, solve_plain64(*args))
             rec["plain32_vs_plain64"] = p64
-            ok = ok and (kp["median_rel_dcost"]
-                         <= 2.0 * p64["median_rel_dcost"] + 1e-3)
-            ok = ok and (kp["mean_leading_iterations_with_same_step"]
-                         >= p64["mean_leading_iterations_with_same_step"]
-                         - LEADING_SLACK)
+            res_b, ms_b, counts_b = run_mode("kernel", "plain", args, PLAIN_REPEATS)
+            if counts_b["rollout"] or counts_b["backward_sweep"] < int(res_b.iters.max()):
+                raise RuntimeError(f"B={B}: backward-kernel path launches {counts_b}")
+            kb = decisions_and_distance(res_b, res_p)
+            rec["backward_kernel_only"] = {"launches": counts_b,
+                                           "rate": rate_record(B, ms_b),
+                                           "vs_plain32": kb}
+            gate("backward-kernel path", rec, kb, p64)
         emit(rec)
-        if not ok:
-            raise RuntimeError(f"B={B}: kernel mode and plain mode disagree: {rec}")
+        gate("kernel mode", rec, kp, p64)
     return launches
+
+
+def phase_stages():
+    """Where one iteration's time goes on the main path: the first
+    iteration's inputs at B=1024, float32, each module-level function that
+    `fddp.solve` calls timed on the host clock around the call, ended by
+    `torch.cuda.synchronize()` (the solve is host-bound, so kernel-only
+    events would hide the launch cost).  Median of 3 calls each after one
+    warm-up, in ms."""
+    B = BATCHES[-1]
+    it = main_path_first_iteration(B)
+    knot, bi = it["knot"], it["bi"]
+    reg = torch.full((B,), 1e-9, dtype=torch.float32, device="cuda")
+    consts = pack_knot_consts(knot.model, knot.W, knot.surface, torch.float32)
+    state = {}
+
+    def deriv():
+        state["bi"] = backward_inputs(knot, it["refs_run"], it["ref_T"], it["x0"],
+                                      it["xs"], it["us"], bi.feasible)
+
+    def bw():
+        state["out"] = backward_box(*bi.args, reg, reg, boxqp_iters=BOXQP_ITERS,
+                                    kgain_reg=KGAIN_REG)
+
+    deriv()
+    bw()
+    K, kff, _, dg, dq, _, w_all = state["out"]
+    r_args = (it["x0"], it["xs"], it["us"], K, kff, bi.fs, bi.feasible,
+              it["refs_run"], it["ref_T"])
+
+    def ro_kernel():
+        state["try"] = rollout(knot, consts, *r_args, N_ALPHAS)
+
+    def ro_plain():
+        rollout_reference(knot, *r_args, N_ALPHAS)
+
+    def accept():
+        xs_try, us_try, cost_try = state["try"]
+        accept_step(FDDPSettings(), it["xs"], it["us"], bi.cost_cur, xs_try,
+                    us_try, cost_try, w_all, dg, dq)
+
+    def host_ms(fn, n=3):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    stages = {"backward_inputs": host_ms(deriv), "backward_box": host_ms(bw),
+              "rollout": host_ms(ro_kernel), "rollout_reference": host_ms(ro_plain),
+              "accept_step": host_ms(accept)}
+    per_iter = {mode: stages["backward_inputs"] + stages["backward_box"]
+                + stages[name] + stages["accept_step"]
+                for mode, name in (("kernel", "rollout"), ("plain", "rollout_reference"))}
+    emit({"phase": "stages", "B": B, "N": HORIZON, "dtype": "float32",
+          "ms": stages, "iteration_ms_by_rollout_mode": per_iter,
+          "share_of_kernel_mode_iteration": {
+              k: stages[k] / per_iter["kernel"]
+              for k in ("backward_inputs", "backward_box", "rollout", "accept_step")}})
 
 
 def main():
     smi = phase_device()
     phase_build()
-    kernel = phase_kernels()
+    backward = phase_kernels()
+    ro = phase_rollout_kernel()
     phase_small_reference()
+    phase_golden()
     launches = phase_solve()
-    kernel["launches"] = launches[BATCHES[-1]]
-    kernel["launches_by_batch"] = {str(b): n for b, n in launches.items()}
+    phase_stages()
+    for entry in (backward, ro):
+        entry["launches_by_batch"] = {str(b): n[entry["name"]] for b, n in launches.items()}
+        entry["launches"] = entry["launches_by_batch"][str(BATCHES[-1])]
     print(smi, flush=True)
-    emit({"kernels": [kernel]})
+    emit({"kernels": [backward, ro]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -72,6 +72,11 @@ class KnotModel(NamedTuple):
     nu: int
     u_lb: Tuple[float, ...]
     u_ub: Tuple[float, ...]
+    # what the knot was built from, for the rollout kernel's constant packer
+    # (solver/rollout_cuda.py::pack_knot_consts)
+    model: Optional[PandaModel] = None
+    W: Optional[OCPWeights] = None
+    surface: Optional[bool] = None
 
 
 # ---------------------------------------------------------------------------
@@ -358,6 +363,39 @@ def _classical_analytic(model: PandaModel, W: OCPWeights, surface: bool,
 # augmented LPF knot (force-feedback)
 # ---------------------------------------------------------------------------
 
+def lpf_coefficients(W: OCPWeights):
+    """(alpha, 1 - alpha) of the torque filter tau+ = alpha tau + (1-alpha) w."""
+    alpha = float(np.clip(W.ff_alpha, 0.0, 0.999999))
+    return alpha, 1.0 - alpha
+
+
+def augmented_spec(model: PandaModel, W: OCPWeights, surface: bool):
+    """The augmented knot's cost terms in summation order (the inner spec
+    without the disabled inner regularizations, then the discrete-level
+    y / w terms), and the names of the dropped inner terms."""
+    spec = dict(_make_spec(model, W, surface))
+    dropped = []
+    if not W.use_inner_state_reg:
+        dropped += ["posture", "v_damp"]
+    if not W.use_inner_tau_reg:
+        dropped += ["tau_reg", "tau_soft_limits"]
+    for name in dropped:
+        spec.pop(name, None)
+
+    w_lim = np.asarray(W.tau_limits)
+    soft_lim = np.maximum(w_lim - max(W.tau_soft_limit_margin, 0.0), 1e-9)
+    outer_spec: Dict[str, CostTerm] = {}
+    if W.w_y > 0.0:
+        wy2 = [float(v) ** 2 for v in W.y_weights]
+        outer_spec["y_reg"] = CostTerm(W.w_y, act.wquad(wy2), False, True)
+    if W.w_w > 0.0:
+        outer_spec["w_reg"] = CostTerm(W.w_w, act.quad(), False, True)
+    if W.w_w_soft_limits > 0.0:
+        outer_spec["w_soft"] = CostTerm(
+            W.w_w_soft_limits, act.barrier(-soft_lim, soft_lim), False, True)
+    return {**spec, **outer_spec}, dropped
+
+
 def make_augmented_knot(model: PandaModel, W: OCPWeights,
                         surface: bool) -> KnotModel:
     """Augmented action model on y=(q,v,tau), control w.
@@ -370,36 +408,11 @@ def make_augmented_knot(model: PandaModel, W: OCPWeights,
         raise ValueError(
             f"contact_model {W.contact_model!r}: only the normal_1d contact "
             "is ported")
-    spec = _make_spec(model, W, surface)
-    # drop inner regs if disabled
-    spec = dict(spec)
-    _dropped = []
-    if not W.use_inner_state_reg:
-        _dropped += ["posture", "v_damp"]
-    if not W.use_inner_tau_reg:
-        _dropped += ["tau_reg", "tau_soft_limits"]
-    for _name in _dropped:
-        spec.pop(_name, None)
+    full_spec, _dropped = augmented_spec(model, W, surface)
 
     nx, nu, nx_mb = 21, 7, 14
     dt = float(W.dt_ocp)
-    alpha = float(np.clip(W.ff_alpha, 0.0, 0.999999))
-    beta = 1.0 - alpha
-
-    w_lim = np.asarray(W.tau_limits)
-    soft_lim = np.maximum(w_lim - max(W.tau_soft_limit_margin, 0.0), 1e-9)
-
-    outer_spec: Dict[str, CostTerm] = {}
-    if W.w_y > 0.0:
-        wy2 = [float(v) ** 2 for v in W.y_weights]
-        outer_spec["y_reg"] = CostTerm(W.w_y, act.wquad(wy2), False, True)
-    if W.w_w > 0.0:
-        outer_spec["w_reg"] = CostTerm(W.w_w, act.quad(), False, True)
-    if W.w_w_soft_limits > 0.0:
-        outer_spec["w_soft"] = CostTerm(
-            W.w_w_soft_limits, act.barrier(-soft_lim, soft_lim), False, True)
-
-    full_spec = {**spec, **outer_spec}
+    alpha, beta = lpf_coefficients(W)
 
     def _outer_residuals(res, ref, y, w):
         if W.w_y > 0.0:
@@ -494,4 +507,4 @@ def make_augmented_knot(model: PandaModel, W: OCPWeights,
 
     lim = tuple(float(t) for t in W.tau_limits)
     return KnotModel(calc, diff, term_calc, term_diff, nx, nu,
-                     tuple(-t for t in lim), lim)
+                     tuple(-t for t in lim), lim, model, W, surface)

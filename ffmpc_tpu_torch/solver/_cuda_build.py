@@ -2,8 +2,10 @@
 
 Each ``csrc/*.cu`` has a plain C interface.  At first use every source is
 compiled by ``nvcc`` for ``sm_90a`` into ``ffmpc_tpu_torch/_build/``, keyed
-by a hash of the source and flags, and loaded with ``ctypes``.  Nothing is built at import.  A failed build
-raises; there is no fallback.
+by a hash of every file under ``csrc/`` (a source and the headers it
+includes) and of the flags, and loaded with ``ctypes``.  The sources are
+compiled in parallel, one ``nvcc`` each.  Nothing is built at import.  A
+failed build raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -43,8 +45,14 @@ def _find_nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
+    """The library built from ``src``: its name carries a hash of every file
+    under ``csrc/`` (so a changed header gives a new library) and of the
+    flags."""
     h = hashlib.sha256()
-    h.update(src.read_bytes())
+    h.update(src.name.encode())
+    for f in sorted(p for p in CSRC_DIR.rglob("*") if p.is_file()):
+        h.update(str(f.relative_to(CSRC_DIR)).encode())
+        h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
@@ -55,30 +63,36 @@ class BuildResult(NamedTuple):
 
 
 def build_all() -> BuildResult:
-    """Compile every ``csrc/*.cu`` that has no up-to-date library yet.  The
-    compiler's output (each kernel's registers, shared memory and spills,
-    ``-Xptxas -v``) is kept beside the library, so it can be read back
-    whether the library was built now or earlier."""
+    """Compile every ``csrc/*.cu`` that has no up-to-date library yet, one
+    ``nvcc`` per source, all started together.  The compiler's output (each
+    kernel's registers, shared memory and spills, ``-Xptxas -v``) is kept
+    beside the library, so it can be read back whether the library was
+    built now or earlier."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths, logs = {}, {}
-    for src in sources:
-        lib = _target(src)
-        log_file = lib.with_suffix(".log")
-        if not lib.exists():
-            tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-            p = subprocess.run(
-                [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            if p.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {src.name} (exit {p.returncode}):\n{p.stdout}")
-            log_file.write_text(p.stdout)
-            os.replace(tmp, lib)
-        paths[src.stem] = lib
-        logs[src.stem] = log_file.read_text()
+    paths = {src.stem: _target(src) for src in sources}
+    todo = [src for src in sources if not paths[src.stem].exists()]
+    if todo:
+        nvcc = _find_nvcc()
+        running = []
+        for src in todo:
+            tmp = paths[src.stem].with_suffix(f".tmp{os.getpid()}.so")
+            running.append((src, tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for src, tmp, proc in running:
+            out = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {src.name} (exit {proc.returncode}):\n{out}")
+                continue
+            paths[src.stem].with_suffix(".log").write_text(out)
+            os.replace(tmp, paths[src.stem])
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    logs = {stem: lib.with_suffix(".log").read_text() for stem, lib in paths.items()}
     return BuildResult(paths, logs)
 
 

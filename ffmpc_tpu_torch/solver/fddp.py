@@ -33,6 +33,7 @@ import torch
 from ..ocp.action import KnotModel
 from ..ocp.weights import ProblemRefs
 from .backward_cuda import backward_box, backward_box_reference
+from .rollout_cuda import pack_knot_consts, rollout, rollout_reference
 
 KGAIN_REG = 1e-12
 
@@ -61,6 +62,10 @@ class FDDPSettings:
     # kernel for tensors on the card); "plain": the batched PyTorch loop over
     # knots, ``backward_box_reference``.
     backward_mode: str = "kernel"
+    # "kernel": the line-search rollout goes through ``rollout`` (the CUDA
+    # kernel for tensors on the card); "plain": ``rollout_reference``, the
+    # Python loop over knots of batched knot calcs.
+    rollout_mode: str = "kernel"
 
 
 class FDDPResult(NamedTuple):
@@ -108,6 +113,59 @@ def _select(pred, new, old):
     return torch.where(pred.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
 
 
+class LineSearchStep(NamedTuple):
+    """The step one iteration's line search takes, per problem."""
+    accepted: torch.Tensor   # (B,) bool, some step length passed
+    alpha: torch.Tensor      # (B,) the largest passing step length (1 where none passed)
+    xs: torch.Tensor         # (B, N+1, nx) its trajectory, or the current one
+    us: torch.Tensor         # (B, N, nu)
+    cost: torch.Tensor       # (B,) its cost, or the current one
+
+
+def accept_step(S: "FDDPSettings", xs, us, cost_cur, xs_try, us_try, cost_try,
+                w_all, dg, dq) -> LineSearchStep:
+    """Acceptance of every step length and selection of the largest that
+    passes (Crocoddyl's first-acceptable descending sweep with fixed cost).
+    xs / us / cost_cur: the current iterate; *_try: ``rollout``'s outputs;
+    w_all, dg, dq: the backward sweep's gap products and expected-improvement
+    terms."""
+    B, A = cost_try.shape
+    alphas = 0.5 ** torch.arange(A, dtype=xs.dtype, device=xs.device)
+    dV = cost_cur[:, None] - cost_try                       # (B, A)
+    # gap-aware expected improvement; the gap weight and Vxx are folded
+    # into w_all = gapw * Vxx @ fs by the backward pass
+    dx_all = xs[:, None] - xs_try
+    dv = -torch.sum(w_all[:, None] * dx_all, dim=(2, 3))
+    d1 = dg[:, None] + dv
+    d2 = dq[:, None] - 2.0 * dv
+    dVexp = alphas * (d1 + 0.5 * alphas * d2)
+    finite = torch.isfinite(cost_try)
+    cost_guard = (S.neg_step_cost_factor * cost_cur + S.neg_step_cost_slack)[:, None]
+    # The th_grad escape hatch means "expected gradient negligible,
+    # accept to avoid stalling"; it requires the gradient to actually be
+    # small and bounds the cost.
+    ok_pos = (dVexp >= 0) & (
+        ((d1.abs() < S.th_grad) & (cost_try < cost_guard))
+        | (dV > S.th_acceptstep * dVexp))
+    # Negative-improvement (gap-contraction) acceptance, with a
+    # robustness clamp: each accepted cost increase is bounded
+    # multiplicatively.
+    ok_neg = ((dVexp < 0) & (dV > S.th_acceptnegstep * dVexp)
+              & (cost_try < cost_guard))
+    ok = finite & (ok_pos | ok_neg)                         # (B, A)
+
+    # Selection by gather, never by a one-hot product: rejected step
+    # lengths can carry inf/NaN, and 0 * nan would poison the pick.
+    accepted = ok.any(dim=1)
+    sel = torch.argmax(ok.to(torch.int8), dim=1)  # first True == largest alpha
+    rows = torch.arange(B, device=xs.device)
+    return LineSearchStep(
+        accepted=accepted, alpha=alphas[sel],
+        xs=_select(accepted, xs_try[rows, sel], xs),
+        us=_select(accepted, us_try[rows, sel], us),
+        cost=torch.where(accepted, cost_try[rows, sel], cost_cur))
+
+
 class BackwardInputs(NamedTuple):
     """What one iteration hands the backward sweep (all but the regs), plus
     the quantities the line search needs from the same derivative pass."""
@@ -151,46 +209,28 @@ def solve(knot: KnotModel, refs_run: ProblemRefs, ref_T: ProblemRefs, x0,
     S = settings
     if S.backward_mode not in ("kernel", "plain"):
         raise ValueError(f"unknown backward_mode {S.backward_mode!r}")
+    if S.rollout_mode not in ("kernel", "plain"):
+        raise ValueError(f"unknown rollout_mode {S.rollout_mode!r}")
     nx, nu = knot.nx, knot.nu
     B, N = us_init.shape[0], us_init.shape[1]
-    A = S.n_alphas
     dtype, device = xs_init.dtype, xs_init.device
     kw = dict(dtype=dtype, device=device)
 
-    u_lb = torch.tensor(knot.u_lb, **kw)
-    u_ub = torch.tensor(knot.u_ub, **kw)
-    alphas = 0.5 ** torch.arange(A, **kw)                       # (A,)
     bw_fn = backward_box if S.backward_mode == "kernel" else backward_box_reference
-    rows = torch.arange(B, device=device)
-
-    def expand_ref(ref, t):
-        """Knot t's refs for every step length: leading dims (B, A)."""
-        return ProblemRefs(*(a[:, t, None].expand((B, A) + a.shape[2:])
-                             for a in ref))
+    # the rollout kernel reads its inputs as contiguous arrays
+    x0 = x0.contiguous()
+    refs_run = ProblemRefs(*(a.contiguous() for a in refs_run))
+    ref_T = ProblemRefs(*(a.contiguous() for a in ref_T))
+    if S.rollout_mode == "kernel":
+        consts = pack_knot_consts(knot.model, knot.W, knot.surface, dtype)
 
     # ---------------- forward pass: all step lengths in one rollout -------
     def forward(xs, us, K, kff, fs, feasible):
-        gap_scale = torch.where(feasible[:, None], 0.0, alphas[None, :] - 1.0).to(dtype)
-        # (forward-mode AD inside the knot refuses overlapping memory)
-        x = x0[:, None, :].expand(B, A, nx).contiguous()
-        xs_run, us_try, costs = [], [], []
-        for t in range(N):
-            dx = x - xs[:, t, None]
-            u = (us[:, t, None] - alphas[None, :, None] * kff[:, t, None]
-                 - (K[:, t, None] @ dx[..., None])[..., 0])
-            u = torch.minimum(torch.maximum(u, u_lb), u_ub)
-            xnext, cost = knot.calc(expand_ref(refs_run, t), x, u)
-            xs_run.append(x)
-            us_try.append(u)
-            costs.append(cost)
-            x = xnext + gap_scale[..., None] * fs[:, t + 1, None]
-        ref_TA = ProblemRefs(*(a[:, None].expand((B, A) + a.shape[1:])
-                               for a in ref_T))
-        cost_T = knot.term_calc(ref_TA, x)
-        xs_try = torch.stack(xs_run + [x], dim=2)               # (B, A, N+1, nx)
-        us_try = torch.stack(us_try, dim=2)                     # (B, A, N, nu)
-        cost_try = torch.sum(torch.stack(costs, dim=-1), dim=-1) + cost_T
-        return xs_try, us_try, cost_try
+        if S.rollout_mode == "kernel":
+            return rollout(knot, consts, x0, xs, us, K, kff, fs, feasible,
+                           refs_run, ref_T, S.n_alphas)
+        return rollout_reference(knot, x0, xs, us, K, kff, fs, feasible,
+                                 refs_run, ref_T, S.n_alphas)
 
     # ---------------- one FDDP iteration (all problems) -------------------
     def iteration(c: _Carry) -> _Carry:
@@ -221,42 +261,10 @@ def solve(knot: KnotModel, refs_run: ProblemRefs, ref_T: ProblemRefs, x0,
         # the largest acceptable alpha is selected per problem.  Equivalent
         # to Crocoddyl's first-acceptable descending sweep with fixed cost.
         xs_try, us_try, cost_try = forward(c.xs, c.us, K, kff, fs, feasible)
-
-        dV = cost_cur[:, None] - cost_try                       # (B, A)
-        # gap-aware expected improvement; the gap weight and Vxx are folded
-        # into w_all = gapw * Vxx @ fs by the backward pass
-        dx_all = c.xs[:, None] - xs_try
-        dv = -torch.sum(w_all[:, None] * dx_all, dim=(2, 3))
-        d1 = dg[:, None] + dv
-        d2 = dq[:, None] - 2.0 * dv
-        dVexp = alphas * (d1 + 0.5 * alphas * d2)
-        finite = torch.isfinite(cost_try)
-        cost_guard = (S.neg_step_cost_factor * cost_cur + S.neg_step_cost_slack)[:, None]
-        # The th_grad escape hatch means "expected gradient negligible,
-        # accept to avoid stalling"; it requires the gradient to actually be
-        # small and bounds the cost.
-        ok_pos = (dVexp >= 0) & (
-            ((d1.abs() < S.th_grad) & (cost_try < cost_guard))
-            | (dV > S.th_acceptstep * dVexp))
-        # Negative-improvement (gap-contraction) acceptance, with a
-        # robustness clamp: each accepted cost increase is bounded
-        # multiplicatively.
-        ok_neg = ((dVexp < 0) & (dV > S.th_acceptnegstep * dVexp)
-                  & (cost_try < cost_guard))
-        ok = finite & (ok_pos | ok_neg)                         # (B, A)
-
-        # Selection by gather, never by a one-hot product: rejected step
-        # lengths can carry inf/NaN, and 0 * nan would poison the pick.
-        accepted = ok.any(dim=1)
-        sel = torch.argmax(ok.to(torch.int8), dim=1)  # first True == largest alpha
-        xs_sel = xs_try[rows, sel]
-        us_sel = us_try[rows, sel]
-        cost_sel = cost_try[rows, sel]
-        alpha_f = alphas[sel]
-
-        xs_new = _select(accepted, xs_sel, c.xs)
-        us_new = _select(accepted, us_sel, c.us)
-        cost_new = torch.where(accepted, cost_sel, cost_cur)
+        ls = accept_step(S, c.xs, c.us, cost_cur, xs_try, us_try, cost_try,
+                         w_all, dg, dq)
+        accepted, alpha_f = ls.accepted, ls.alpha
+        xs_new, us_new, cost_new = ls.xs, ls.us, ls.cost
         feasible_new = feasible | (accepted & (alpha_f >= 1.0 - 1e-12))
 
         # regularization schedule (crocoddyl solve loop)

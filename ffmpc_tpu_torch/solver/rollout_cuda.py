@@ -1,0 +1,300 @@
+"""FDDP line-search rollout: CUDA kernel wrapper, its plain PyTorch version
+and the kernel's constant packer.
+
+Counterpart of ``ffmpc_tpu/solver/rollout_pallas.py``.  Both functions here
+roll out every problem of a batch for all step lengths alpha = 2^-a, a < A,
+at once: for each knot t the policy update
+``u = clip(u_nom - alpha kff - K (x - x_nom))``, the knot's dynamics and cost,
+and the gap-keeping update ``x+ = f(x, u) + (alpha - 1)(1 - feasible) fs[t+1]``,
+then the terminal cost:
+
+    inputs   x0 (B,nx)  xs (B,N+1,nx)  us (B,N,nu)  K (B,N,nu,nx)  kff (B,N,nu)
+             fs (B,N+1,nx)  feasible (B,) bool
+             refs_run: ProblemRefs with leading dims (B,N); ref_T: leading (B,)
+    outputs  xs_try (B,A,N+1,nx)  us_try (B,A,N,nu)  cost_try (B,A)
+
+``rollout`` launches the hand-written kernel ``csrc/rollout.cu`` (device code
+in ``csrc/knot_chain.cuh``) for CUDA tensors, or raises, and uses
+``rollout_reference`` only for CPU tensors.  ``rollout_reference`` is the
+solver's alpha-batched forward pass, a Python loop over the knots of batched
+``knot.calc`` calls: what the kernel is held against, and what
+``rollout_mode="plain"`` runs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import numpy as np
+import torch
+
+from ..ocp.action import (KnotModel, _build_q_soft_barrier, augmented_spec,
+                          lpf_coefficients)
+from ..ocp.weights import ProblemRefs
+from ._cuda_build import load_library
+
+KERNEL_NX, KERNEL_NU = 21, 7      # the shapes the kernel is instantiated for
+
+# The cost slots of csrc/knot_chain.cuh (enum Slot), in summation order, with
+# their residual widths.  A knot's spec must list its terms in this order.
+COST_SLOTS = (("posture", 14), ("v_damp", 14), ("q_soft_limits", 14),
+              ("ee_ori", 3), ("w_damp", 6), ("tau_reg", 7),
+              ("tau_soft_limits", 7), ("ee_pos", 3), ("ee_xy", 3),
+              ("ee_vxy", 6), ("plane_z", 3), ("vz_damp", 6),
+              ("unilateral", 1), ("fn_track", 1), ("y_reg", 21),
+              ("w_reg", 7), ("w_soft", 7))
+N_ROWS = sum(n for _, n in COST_SLOTS)
+
+# Fields of csrc/knot_chain.cuh::KnotConstants in declaration order, with
+# their sizes in elements.
+CONST_FIELDS = (
+    ("base_rot", 9), ("base_pos", 3), ("j_pos", 21), ("j_rot", 63),
+    ("ee_pos", 3), ("ee_rot", 9), ("mass", 7), ("com", 21), ("inertia", 63),
+    ("armature", 7), ("damping", 7), ("gravity", 3),
+    ("dt", 1), ("lpf_alpha", 1), ("lpf_beta", 1), ("z_press", 1), ("kp", 1),
+    ("kd", 1), ("damping_c", 1), ("fn_des", 1),
+    ("u_lb", 7), ("u_ub", 7), ("q_soft_ref", 14),
+    ("slot_scale", len(COST_SLOTS)), ("slot_barrier", len(COST_SLOTS)),
+    ("slot_terminal", len(COST_SLOTS)),
+    ("row_w", N_ROWS), ("row_lb", N_ROWS), ("row_ub", N_ROWS))
+N_CONSTS = sum(n for _, n in CONST_FIELDS)
+
+
+def cost_table(model, W, surface: bool):
+    """The knot's cost terms laid out on the kernel's slots: per slot
+    (scale = weight x dt scale, 0 if the term is absent; barrier flag;
+    terminal flag) and per row (weight, lower bound, upper bound).  quad is
+    written as a weighted quadratic with unit weights (the same value)."""
+    spec, _ = augmented_spec(model, W, surface)
+    names = [n for n, _ in COST_SLOTS]
+    order = [names.index(n) if n in names else -1 for n in spec]
+    if -1 in order or order != sorted(order):
+        raise ValueError(
+            f"rollout kernel: cost terms {list(spec)} are not a subsequence "
+            f"of the kernel's slots {names}")
+    dt = float(W.dt_ocp)
+    n_s = len(COST_SLOTS)
+    scale, barrier, terminal = np.zeros(n_s), np.zeros(n_s), np.zeros(n_s)
+    row_w = np.zeros(N_ROWS)
+    row_lb = np.full(N_ROWS, -np.inf)
+    row_ub = np.full(N_ROWS, np.inf)
+    row0 = 0
+    for s, (name, nr) in enumerate(COST_SLOTS):
+        term = spec.get(name)
+        if term is not None:
+            scale[s] = term.weight * (dt if term.dt_scaled else 1.0)
+            terminal[s] = 1.0 if term.terminal else 0.0
+            a = term.activation
+            rows = slice(row0, row0 + nr)
+            if a.kind == "quad":
+                row_w[rows] = 1.0
+            elif a.kind == "wquad":
+                if len(a.weights) != nr:
+                    raise ValueError(f"rollout kernel: {name} has {len(a.weights)} "
+                                     f"row weights, the kernel {nr}")
+                row_w[rows] = a.weights
+            elif a.kind == "barrier":
+                if len(a.lb) != nr or len(a.ub) != nr:
+                    raise ValueError(f"rollout kernel: {name} has bounds of "
+                                     f"another width than the kernel's {nr}")
+                barrier[s] = 1.0
+                row_lb[rows] = a.lb
+                row_ub[rows] = a.ub
+            else:
+                raise ValueError(f"rollout kernel: activation {a.kind!r} of {name}")
+        row0 += nr
+    return dict(slot_scale=scale, slot_barrier=barrier, slot_terminal=terminal,
+                row_w=row_w, row_lb=row_lb, row_ub=row_ub)
+
+
+def pack_knot_consts(model, W, surface: bool, dtype) -> torch.Tensor:
+    """Flatten the model constants, the knot's scalars and its cost table
+    into the kernel's ``KnotConstants`` layout: a flat CPU tensor in
+    ``dtype``.  Raises for a knot the kernel does not compute (another
+    contact model, a missing model)."""
+    if model is None or W is None or surface is None:
+        raise ValueError("rollout kernel: the knot carries no model / weights "
+                         "(only the augmented knot of ocp/action.py is ported)")
+    if W.contact_model != "normal_1d":
+        raise ValueError(f"rollout kernel: contact_model {W.contact_model!r}; "
+                         "only normal_1d is ported")
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"rollout kernel: unsupported dtype {dtype}")
+    alpha, beta = lpf_coefficients(W)
+    x_ref, _, _ = _build_q_soft_barrier(model, W.q_soft_limit_margin)
+    lim = np.asarray(W.tau_limits, dtype=np.float64)
+    fields = {name: getattr(model, name).detach().cpu().double().numpy()
+              for name in ("base_rot", "base_pos", "j_pos", "j_rot", "ee_pos",
+                           "ee_rot", "mass", "com", "inertia", "armature",
+                           "damping", "gravity")}
+    fields.update(
+        dt=float(W.dt_ocp), lpf_alpha=alpha, lpf_beta=beta,
+        z_press=float(W.z_press), kp=float(W.contact_gains[0]),
+        kd=float(W.contact_gains[1]), damping_c=float(W.contact_inv_damping),
+        fn_des=float(W.fn_des), u_lb=-lim, u_ub=lim, q_soft_ref=x_ref)
+    fields.update(cost_table(model, W, surface))
+    parts = []
+    for name, n in CONST_FIELDS:
+        a = np.asarray(fields[name], dtype=np.float64).reshape(-1)
+        if a.size != n:
+            raise ValueError(f"rollout kernel: constant {name} has {a.size} values, "
+                             f"expected {n}")
+        parts.append(a)
+    return torch.tensor(np.concatenate(parts), dtype=dtype)
+
+
+def _expected_shapes(B, N, nx, nu):
+    return dict(x0=(B, nx), xs=(B, N + 1, nx), us=(B, N, nu), K=(B, N, nu, nx),
+                kff=(B, N, nu), fs=(B, N + 1, nx))
+
+
+_REF_SHAPES = dict(p_ref=(3,), v_ref=(3,), x_reg_ref=(14,), tau_ref=(7,),
+                   R_des=(3, 3), y_ref=(21,))
+
+
+def _check_args(x0, xs, us, K, kff, fs, feasible, refs_run, ref_T):
+    if xs.dim() != 3 or us.dim() != 3:
+        raise ValueError("xs must be (B,N+1,nx) and us (B,N,nu)")
+    B, N, nu = us.shape
+    nx = xs.shape[2]
+    want = _expected_shapes(B, N, nx, nu)
+    named = dict(x0=x0, xs=xs, us=us, K=K, kff=kff, fs=fs)
+    for name, a in named.items():
+        if tuple(a.shape) != want[name]:
+            raise ValueError(f"{name}: shape {tuple(a.shape)}, expected {want[name]}")
+    for name, a in [*named.items(),
+                    *((f"refs_run.{f}", getattr(refs_run, f)) for f in ProblemRefs._fields),
+                    *((f"ref_T.{f}", getattr(ref_T, f)) for f in ProblemRefs._fields)]:
+        if a.dtype != xs.dtype or a.device != xs.device:
+            raise ValueError(f"{name}: dtype/device {a.dtype}/{a.device} differ "
+                             f"from xs's {xs.dtype}/{xs.device}")
+    for f in ProblemRefs._fields:
+        for lead, ref in (((B, N), refs_run), ((B,), ref_T)):
+            a = getattr(ref, f)
+            if tuple(a.shape) != lead + _REF_SHAPES[f]:
+                raise ValueError(f"{f}: shape {tuple(a.shape)}, expected "
+                                 f"{lead + _REF_SHAPES[f]}")
+    if tuple(feasible.shape) != (B,) or feasible.dtype != torch.bool:
+        raise ValueError(f"feasible: {tuple(feasible.shape)} {feasible.dtype}, "
+                         f"expected ({B},) bool")
+    if feasible.device != xs.device:
+        raise ValueError(f"feasible lives on {feasible.device}, xs on {xs.device}")
+    return B, N, nx, nu
+
+
+def rollout_reference(knot: KnotModel, x0, xs, us, K, kff, fs, feasible,
+                      refs_run: ProblemRefs, ref_T: ProblemRefs, n_alphas: int):
+    """Plain PyTorch rollout (see the module docstring for shapes)."""
+    B, N, nx, nu = _check_args(x0, xs, us, K, kff, fs, feasible, refs_run, ref_T)
+    A = n_alphas
+    kw = dict(dtype=xs.dtype, device=xs.device)
+    dtype = xs.dtype
+    u_lb = torch.tensor(knot.u_lb, **kw)
+    u_ub = torch.tensor(knot.u_ub, **kw)
+    alphas = 0.5 ** torch.arange(A, **kw)                       # (A,)
+
+    def expand_ref(ref, t):
+        """Knot t's refs for every step length: leading dims (B, A)."""
+        return ProblemRefs(*(a[:, t, None].expand((B, A) + a.shape[2:])
+                             for a in ref))
+
+    gap_scale = torch.where(feasible[:, None], 0.0, alphas[None, :] - 1.0).to(dtype)
+    # (forward-mode AD inside the knot refuses overlapping memory)
+    x = x0[:, None, :].expand(B, A, nx).contiguous()
+    xs_run, us_try, costs = [], [], []
+    for t in range(N):
+        dx = x - xs[:, t, None]
+        u = (us[:, t, None] - alphas[None, :, None] * kff[:, t, None]
+             - (K[:, t, None] @ dx[..., None])[..., 0])
+        u = torch.minimum(torch.maximum(u, u_lb), u_ub)
+        xnext, cost = knot.calc(expand_ref(refs_run, t), x, u)
+        xs_run.append(x)
+        us_try.append(u)
+        costs.append(cost)
+        x = xnext + gap_scale[..., None] * fs[:, t + 1, None]
+    ref_TA = ProblemRefs(*(a[:, None].expand((B, A) + a.shape[1:])
+                           for a in ref_T))
+    cost_T = knot.term_calc(ref_TA, x)
+    xs_try = torch.stack(xs_run + [x], dim=2)               # (B, A, N+1, nx)
+    us_try = torch.stack(us_try, dim=2)                     # (B, A, N, nu)
+    cost_try = torch.sum(torch.stack(costs, dim=-1), dim=-1) + cost_T
+    return xs_try, us_try, cost_try
+
+
+_consts_len_checked = set()
+
+
+def _kernel_fn(dtype):
+    lib = load_library("rollout")
+    suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+    if dtype not in _consts_len_checked:
+        n = getattr(lib, f"ffmpc_rollout_consts_len_{suffix}")
+        n.restype = ctypes.c_int
+        if n() != N_CONSTS:
+            raise RuntimeError(f"rollout kernel: KnotConstants holds {n()} values, "
+                               f"the packer writes {N_CONSTS}")
+        _consts_len_checked.add(dtype)
+    fn = getattr(lib, f"ffmpc_rollout_{suffix}")
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 12
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rollout(knot: KnotModel, consts: torch.Tensor, x0, xs, us, K, kff, fs,
+            feasible, refs_run: ProblemRefs, ref_T: ProblemRefs, n_alphas: int):
+    """Line-search rollout on the hand-written CUDA kernel (see the module
+    docstring for shapes).  CUDA tensors go to the kernel or raise; only CPU
+    tensors go to ``rollout_reference``.  ``consts`` is
+    ``pack_knot_consts(knot.model, knot.W, knot.surface, dtype)``.  Launches
+    on the current stream and does not synchronize.  ``rollout.launches``
+    counts the kernel launches (a plain integer, incremented here and
+    nowhere else)."""
+    B, N, nx, nu = _check_args(x0, xs, us, K, kff, fs, feasible, refs_run, ref_T)
+    if xs.device.type == "cpu":
+        return rollout_reference(knot, x0, xs, us, K, kff, fs, feasible,
+                                 refs_run, ref_T, n_alphas)
+    if xs.device.type != "cuda":
+        raise ValueError(f"rollout: unsupported device {xs.device}")
+    if (nx, nu) != (KERNEL_NX, KERNEL_NU):
+        raise ValueError(f"rollout: the kernel is built for nx={KERNEL_NX}, "
+                         f"nu={KERNEL_NU}; got nx={nx}, nu={nu}")
+    dtype = xs.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"rollout: unsupported dtype {dtype}")
+    if B < 1 or N < 1 or n_alphas < 1:
+        raise ValueError(f"rollout: empty batch, horizon or step lengths "
+                         f"(B={B}, N={N}, A={n_alphas})")
+    if consts.dtype != dtype or consts.device.type != "cpu" \
+            or consts.numel() != N_CONSTS or not consts.is_contiguous():
+        raise ValueError("rollout: consts must be pack_knot_consts(...) in the "
+                         f"rollout's dtype {dtype}")
+    tensors = dict(x0=x0, xs=xs, us=us, K=K, kff=kff, fs=fs, feasible=feasible)
+    for f in ProblemRefs._fields:
+        tensors[f"refs_run.{f}"] = getattr(refs_run, f)
+        tensors[f"ref_T.{f}"] = getattr(ref_T, f)
+    for name, a in tensors.items():
+        if not a.is_contiguous():
+            raise ValueError(f"rollout: {name} must be contiguous")
+
+    A = int(n_alphas)
+    xs_try = torch.empty(B, A, N + 1, nx, dtype=dtype, device=xs.device)
+    us_try = torch.empty(B, A, N, nu, dtype=dtype, device=xs.device)
+    cost_try = torch.empty(B, A, dtype=dtype, device=xs.device)
+    ptrs = ctypes.c_void_p * 6
+    refs_p = ptrs(*(getattr(refs_run, f).data_ptr() for f in ProblemRefs._fields))
+    refT_p = ptrs(*(getattr(ref_T, f).data_ptr() for f in ProblemRefs._fields))
+
+    fn = _kernel_fn(dtype)
+    with torch.cuda.device(xs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(consts.data_ptr(), N_CONSTS,
+                 *(a.data_ptr() for a in (x0, xs, us, K, kff, fs, feasible)),
+                 refs_p, refT_p, xs_try.data_ptr(), us_try.data_ptr(),
+                 cost_try.data_ptr(), B, N, A, int(bool(knot.surface)), stream)
+    if err != 0:
+        raise RuntimeError(f"rollout kernel launch failed: cudaError {err}")
+    rollout.launches += 1
+    return xs_try, us_try, cost_try
+
+
+rollout.launches = 0

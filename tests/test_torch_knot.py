@@ -79,11 +79,11 @@ def test_calc_and_diff_equal_jax(setup, surface):
     kj, kt = knots(setup, surface)
     assert (kt.nx, kt.nu, kt.u_lb, kt.u_ub) == (kj.nx, kj.nu, kj.u_lb, kj.u_ub)
     xs, us = setup["xs"], setup["us"]
-    dj = jax.vmap(jax.vmap(kj.diff))(setup["rrj"], xs, us)
+    dj = jax.jit(jax.vmap(jax.vmap(kj.diff)))(setup["rrj"], xs, us)
     dt = kt.diff(setup["rrt"], T(xs), T(us))
     for name in dj._fields:
         close(getattr(dt, name).numpy(), getattr(dj, name), name)
-    xn_j, c_j = jax.vmap(jax.vmap(kj.calc))(setup["rrj"], xs, us)
+    xn_j, c_j = jax.jit(jax.vmap(jax.vmap(kj.calc)))(setup["rrj"], xs, us)
     xn_t, c_t = kt.calc(setup["rrt"], T(xs), T(us))
     close(xn_t.numpy(), xn_j, "calc.xnext")
     close(c_t.numpy(), c_j, "calc.cost")
@@ -96,12 +96,12 @@ def test_calc_and_diff_equal_jax(setup, surface):
 def test_terminal_equal_jax(setup, surface):
     kj, kt = knots(setup, surface)
     xT = setup["xs"][:, -1]
-    tj = jax.vmap(kj.term_diff)(setup["rTj"], xT)
+    tj = jax.jit(jax.vmap(kj.term_diff))(setup["rTj"], xT)
     tt = kt.term_diff(setup["rTt"], T(xT))
     for name, gj, gt in zip(("cost", "Lx", "Lxx"), tj, tt):
         close(gt.numpy(), gj, "term_diff." + name)
     close(kt.term_calc(setup["rTt"], T(xT)).numpy(),
-          jax.vmap(kj.term_calc)(setup["rTj"], xT), "term_calc")
+          jax.jit(jax.vmap(kj.term_calc))(setup["rTj"], xT), "term_calc")
 
 
 @pytest.mark.parametrize("surface", [True, False], ids=["contact", "free"])

@@ -1,0 +1,370 @@
+"""Line-search rollout of the PyTorch port (the module that holds the CUDA
+rollout kernel) == the JAX package's fused-rollout reference, the
+alpha-vmapped scan of ``make_fused_rollout`` called unbatched, float64 on
+the CPU; the kernel's constant packer == the JAX knot's cost spec; and the
+port's solve == the framework-free golden fixture.  (The slice as a whole
+against the JAX batched solve is ``test_torch_solve.py``, which runs the
+port's default settings, both kernel modes.)
+
+On the CPU ``rollout`` runs its plain version, ``rollout_reference``; the
+CUDA kernel itself runs only on a card (the ``cuda``-marked test, skipped
+here).
+
+Tolerances, each against the field's largest magnitude:
+- against the JAX vector knot, rtol 1e-11: the same formulas in float64,
+  summed in another order, through 4 knots of stiff contact dynamics;
+- against the JAX scalar knot (the TPU kernel's own body), rtol 1e-8 /
+  atol 1e-10: the scalar chain differs from the vector one by its Newton
+  arccos and its op order, about 1e-9 per knot
+  (``tests/test_scalar_knot.py``).
+"""
+
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from ffmpc_tpu.core import make_panda_model as j_make_model, KEYFRAMES, gravity_torque as j_gravity
+from ffmpc_tpu.ocp import action as jaction
+from ffmpc_tpu.ocp.weights import OCPWeights as JWeights, flagship_weights as j_fweights
+from ffmpc_tpu.ocp.problem import build_problem_refs as j_build_refs
+from ffmpc_tpu.solver.rollout_pallas import make_fused_rollout
+from ffmpc_tpu.tasks.trajectories import ApproachCircleTraj as JTraj
+from ffmpc_tpu_torch.core import panda_model_from_numpy
+from ffmpc_tpu_torch.ocp import action as taction
+from ffmpc_tpu_torch.ocp.weights import (OCPWeights as TWeights, flagship_weights as t_fweights,
+                                         problem_refs_from_numpy)
+from ffmpc_tpu_torch.ocp.problem import build_problem_refs as t_build_refs
+from ffmpc_tpu_torch.solver import rollout_cuda as rc
+from ffmpc_tpu_torch.solver import _cuda_build
+from ffmpc_tpu_torch.solver.fddp import FDDPSettings as TSettings, solve as t_solve
+from ffmpc_tpu_torch.tasks.trajectories import ApproachCircleTraj as TTraj
+
+# the inputs of the JAX package's own fused-rollout test
+# (tests/test_rollout_pallas.py): horizon, problems, step lengths
+NH, BN, NA = 4, 2, 6
+Z_C = 0.342
+W_KW = dict(dt_ocp=0.01, w_ee_pos=1.2e3, w_plane_z=9.0e2, contact_gains=(145.0, 85.0),
+            fn_des=22.0, w_fn=3.0e1, z_press=0.0065, ff_alpha=0.3, w_w=6.0e-4, w_y=8.0e-4)
+TRAJ_KW = dict(center=(-0.5, 0.0, Z_C), radius=0.10, omega=1.5, z_contact=Z_C,
+               t_approach=0.55, z_pre=Z_C + 0.05, t_pre=0.25,
+               ee_start=(-0.3, 0.0, 0.633), t_stabilize=0.2)
+
+
+def T(a):
+    return torch.tensor(np.array(a), dtype=torch.float64)
+
+
+def to_port_model(mj):
+    return panda_model_from_numpy({k: np.asarray(v) for k, v in mj._asdict().items()},
+                                  dtype=torch.float64, device="cpu")
+
+
+def to_port_refs(r):
+    return problem_refs_from_numpy({k: np.asarray(v) for k, v in r._asdict().items()},
+                                   dtype=torch.float64, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def setup():
+    mj = j_make_model("plant", jnp.float64)
+    q0 = jnp.asarray(KEYFRAMES["neutral"], jnp.float64)
+    tau_g = j_gravity(mj, q0)
+    y0 = jnp.concatenate([q0, jnp.zeros(7), tau_g])
+    x_reg = jnp.concatenate([q0, jnp.zeros(7)])
+    refs_run, ref_T = j_build_refs(
+        JTraj(**TRAJ_KW), jnp.asarray(1.2), NH, W_KW["dt_ocp"], x_reg, tau_g,
+        jnp.asarray(np.diag([1.0, -1.0, -1.0])), y_ref=y0, dtype=jnp.float64)
+    rng = np.random.default_rng(7)
+    nx = 21
+    y0n, tgn = np.asarray(y0), np.asarray(tau_g)
+    x0 = y0n[None] + 0.05 * rng.normal(size=(BN, nx))
+    xs = np.tile(x0[:, None, :], (1, NH + 1, 1)) + 0.02 * rng.normal(size=(BN, NH + 1, nx))
+    us = np.tile(tgn, (BN, NH, 1)) + 2.0 * rng.normal(size=(BN, NH, 7))
+    K = 0.1 * rng.normal(size=(BN, NH, 7, nx))
+    kff = rng.normal(size=(BN, NH, 7))
+    fs = 0.1 * rng.normal(size=(BN, NH + 1, nx))
+    feas = np.array([False, True])
+    # the port's refs carry the batch: the same problem refs for every problem
+    t_rr = to_port_refs(jax.tree.map(lambda a: jnp.broadcast_to(a, (BN,) + a.shape), refs_run))
+    t_rT = to_port_refs(jax.tree.map(lambda a: jnp.broadcast_to(a, (BN,) + a.shape), ref_T))
+    return dict(mj=mj, mt=to_port_model(mj), refs_run=refs_run, ref_T=ref_T,
+                t_rr=t_rr, t_rT=t_rT, arrays=(x0, xs, us, K, kff, fs, feas))
+
+
+_jax_rollouts = {}
+
+
+def jax_rollout(setup, surface, calc_mode):
+    """The JAX package's plain fused-rollout reference (alpha-vmapped scan),
+    jitted once per knot and called unbatched per problem."""
+    key = (surface, calc_mode)
+    if key not in _jax_rollouts:
+        knot = jaction.make_augmented_knot(setup["mj"], JWeights(**W_KW), surface,
+                                           deriv_mode="analytic", calc_mode=calc_mode)
+        _jax_rollouts[key] = jax.jit(make_fused_rollout(knot, NA, use_box=True))
+    fn = _jax_rollouts[key]
+
+    def run(arrays):
+        outs = [fn(*(jnp.asarray(a[b]) for a in arrays), setup["refs_run"], setup["ref_T"])
+                for b in range(BN)]
+        return [np.stack([np.asarray(o[i]) for o in outs]) for i in range(3)]
+    return run
+
+
+def port_rollout(setup, surface, arrays, fn=rc.rollout_reference):
+    knot = taction.make_augmented_knot(setup["mt"], TWeights(**W_KW), surface)
+    x0, xs, us, K, kff, fs, feas = arrays
+    args = [T(a) for a in (x0, xs, us, K, kff, fs)] + [torch.as_tensor(feas)]
+    if fn is rc.rollout:
+        consts = rc.pack_knot_consts(knot.model, knot.W, knot.surface, torch.float64)
+        return fn(knot, consts, *args, setup["t_rr"], setup["t_rT"], NA)
+    return fn(knot, *args, setup["t_rr"], setup["t_rT"], NA)
+
+
+def assert_close(got, want, rtol, atol, what):
+    for name, g, w in zip(("xs_try", "us_try", "cost_try"), got, want):
+        g, w = np.asarray(g), np.asarray(w)
+        assert g.shape == w.shape, (what, name, g.shape, w.shape)
+        fin = np.isfinite(w)
+        assert np.array_equal(np.isfinite(g), fin), (what, name, "non-finite sets differ")
+        scale = float(np.abs(w[fin]).max())
+        err = float(np.abs(g[fin] - w[fin]).max())
+        assert err <= atol + rtol * scale, f"{what} {name}: err {err:.3e} scale {scale:.3e}"
+
+
+@pytest.mark.parametrize("surface,calc_mode,rtol,atol", [
+    (True, "vector", 1e-11, 0.0), (False, "vector", 1e-11, 0.0),
+    (True, "scalar", 1e-8, 1e-10), (False, "scalar", 1e-8, 1e-10)],
+    ids=["contact-vector", "free-vector", "contact-scalar", "free-scalar"])
+def test_reference_matches_jax_fused_rollout_reference(setup, surface, calc_mode, rtol, atol):
+    want = jax_rollout(setup, surface, calc_mode)(setup["arrays"])
+    got = [o.numpy() for o in port_rollout(setup, surface, setup["arrays"])]
+    assert got[0].shape == (BN, NA, NH + 1, 21) and got[2].shape == (BN, NA)
+    assert_close(got, want, rtol, atol, f"{surface}/{calc_mode}")
+
+
+def test_non_finite_rollouts_match_jax_and_nan_controls_survive_the_clip(setup):
+    """Problem 0 (infeasible) carries a huge gap at one knot, so every step
+    length below 1 (which keeps (alpha - 1) of it) blows up while alpha = 1
+    stays finite; problem 1 has a NaN gain entry, so its controls are NaN
+    from that knot on at every step length: the clip must not turn them
+    into a bound.  Same non-finite (problem, alpha) sets as JAX."""
+    x0, xs, us, K, kff, fs, feas = (np.array(a) for a in setup["arrays"])
+    fs[0, 2] = 1e200
+    K[1, 1, 3, 5] = np.nan
+    arrays = (x0, xs, us, K, kff, fs, feas)
+    got = [o.numpy() for o in port_rollout(setup, True, arrays)]
+    want = jax_rollout(setup, True, "vector")(arrays)
+    fin = np.isfinite(got[2])
+    assert fin[0].tolist() == [True] + [False] * (NA - 1)
+    assert not fin[1].any()
+    assert np.isnan(got[1][1, :, 1:]).any(-1).all()     # NaN controls, not clipped
+    assert not np.isnan(got[1][1, :, 0]).any()
+    assert_close(got, want, 1e-11, 0.0, "non-finite case")
+
+
+def _jax_table(mj, W, surface):
+    """Expected kernel cost table from the JAX package's own spec: its
+    ``_make_spec`` and the outer terms its ``make_augmented_knot`` adds, as
+    name -> (kind, weight x dt scale, row weights, lb, ub, terminal)."""
+    from ffmpc_tpu.ocp import activations as jact
+    spec = dict(jaction._make_spec(mj, W, surface)[0])
+    if not W.use_inner_state_reg:
+        spec.pop("posture", None)
+        spec.pop("v_damp", None)
+    if not W.use_inner_tau_reg:
+        spec.pop("tau_reg", None)
+        spec.pop("tau_soft_limits", None)
+    lim = np.maximum(np.asarray(W.tau_limits) - max(W.tau_soft_limit_margin, 0.0), 1e-9)
+    if W.w_y > 0.0:
+        spec["y_reg"] = jaction.CostTerm(
+            W.w_y, jact.wquad([float(v) ** 2 for v in W.y_weights]), False, True)
+    if W.w_w > 0.0:
+        spec["w_reg"] = jaction.CostTerm(W.w_w, jact.quad(), False, True)
+    if W.w_w_soft_limits > 0.0:
+        spec["w_soft"] = jaction.CostTerm(W.w_w_soft_limits, jact.barrier(-lim, lim),
+                                          False, True)
+    return {name: (t.activation.kind, t.weight * (W.dt_ocp if t.dt_scaled else 1.0),
+                   t.activation.weights, t.activation.lb, t.activation.ub, t.terminal)
+            for name, t in spec.items()}
+
+
+@pytest.mark.parametrize("surface", [True, False], ids=["contact", "free"])
+@pytest.mark.parametrize("variant", ["flagship", "zeros"])
+def test_constant_packer_matches_jax_spec(setup, surface, variant):
+    W = j_fweights()
+    if variant == "zeros":
+        # terms off or at zero weight: absent from the table, or scale 0
+        W = dataclasses.replace(W, w_posture=0.0, w_y=0.0, w_w_soft_limits=0.0,
+                                w_q_soft_limits=0.0, w_vz=0.0, use_inner_tau_reg=False)
+    Wt = TWeights(**dataclasses.asdict(W))
+    mt = setup["mt"]
+    table = rc.cost_table(mt, Wt, surface)
+    want = _jax_table(setup["mj"], W, surface)
+    row0 = 0
+    for s, (name, nr) in enumerate(rc.COST_SLOTS):
+        rows = slice(row0, row0 + nr)
+        row0 += nr
+        if name not in want:
+            assert table["slot_scale"][s] == 0.0, name
+            continue
+        kind, scale, wts, lb, ub, terminal = want[name]
+        assert table["slot_scale"][s] == scale, name
+        assert table["slot_terminal"][s] == float(terminal), name
+        assert table["slot_barrier"][s] == float(kind == "barrier"), name
+        if kind == "quad":
+            assert (table["row_w"][rows] == 1.0).all(), name
+        elif kind == "wquad":
+            assert table["row_w"][rows].tolist() == list(wts), name
+        else:
+            assert table["row_lb"][rows].tolist() == list(lb), name
+            assert table["row_ub"][rows].tolist() == list(ub), name
+    if variant == "zeros":
+        names = [n for n, _ in rc.COST_SLOTS]
+        for off in ("posture", "y_reg", "w_soft", "q_soft_limits", "vz_damp", "tau_reg"):
+            assert table["slot_scale"][names.index(off)] == 0.0, off
+    # the whole constant block: model constants as the JAX model holds them,
+    # the knot's scalars, the table, in the kernel's field order
+    consts = rc.pack_knot_consts(mt, Wt, surface, torch.float64)
+    assert consts.shape == (rc.N_CONSTS,) and consts.dtype == torch.float64
+    off = 0
+    fields = {}
+    for name, n in rc.CONST_FIELDS:
+        fields[name] = consts[off:off + n].numpy()
+        off += n
+    for name in ("j_rot", "inertia", "com", "mass", "armature", "damping", "ee_rot"):
+        np.testing.assert_array_equal(fields[name], np.asarray(getattr(setup["mj"], name)).ravel())
+    assert fields["lpf_alpha"][0] + fields["lpf_beta"][0] == 1.0
+    assert (fields["kp"][0], fields["kd"][0]) == tuple(W.contact_gains)
+    np.testing.assert_array_equal(fields["slot_scale"], table["slot_scale"])
+
+
+def test_packer_refuses_what_the_kernel_does_not_compute(setup):
+    mt = setup["mt"]
+    with pytest.raises(ValueError, match="normal_1d"):
+        rc.pack_knot_consts(mt, dataclasses.replace(t_fweights(), contact_model="point3d"),
+                            True, torch.float64)
+    with pytest.raises(ValueError, match="model"):
+        rc.pack_knot_consts(None, t_fweights(), True, torch.float64)
+    with pytest.raises(ValueError, match="dtype"):
+        rc.pack_knot_consts(mt, t_fweights(), True, torch.float16)
+
+
+def test_wrapper_uses_plain_version_on_cpu_and_counts_no_launch(setup):
+    before = rc.rollout.launches
+    got = port_rollout(setup, True, setup["arrays"], fn=rc.rollout)
+    want = port_rollout(setup, True, setup["arrays"])
+    assert rc.rollout.launches == before
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_wrapper_rejects_wrong_shapes_and_types(setup):
+    knot = taction.make_augmented_knot(setup["mt"], TWeights(**W_KW), True)
+    consts = rc.pack_knot_consts(knot.model, knot.W, knot.surface, torch.float64)
+    x0, xs, us, K, kff, fs, feas = setup["arrays"]
+    args = [T(a) for a in (x0, xs, us, K, kff, fs)] + [torch.as_tensor(feas)]
+
+    def call(a):
+        return rc.rollout(knot, consts, *a, setup["t_rr"], setup["t_rT"], NA)
+
+    bad = list(args)
+    bad[3] = bad[3][:, :-1]                      # K with a knot missing
+    with pytest.raises(ValueError, match="K"):
+        call(bad)
+    bad = list(args)
+    bad[4] = bad[4].to(torch.float32)            # kff in another dtype
+    with pytest.raises(ValueError, match="kff"):
+        call(bad)
+    bad = list(args)
+    bad[6] = bad[6].to(torch.float64)            # feasible must be bool
+    with pytest.raises(ValueError, match="feasible"):
+        call(bad)
+
+
+def test_build_hash_covers_the_headers(tmp_path, monkeypatch):
+    """A changed header gives every library a new name, so a stale build is
+    never loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in _cuda_build.CSRC_DIR.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_cuda_build, "CSRC_DIR", csrc)
+    before = {s: _cuda_build._target(csrc / f"{s}.cu") for s in ("rollout", "backward_sweep")}
+    assert before["rollout"].name != before["backward_sweep"].name
+    header = csrc / "knot_chain.cuh"
+    header.write_text(header.read_text() + "\n// changed\n")
+    after = {s: _cuda_build._target(csrc / f"{s}.cu") for s in ("rollout", "backward_sweep")}
+    assert before["rollout"] != after["rollout"]
+    assert before["backward_sweep"] != after["backward_sweep"]
+    assert after["rollout"].name.startswith("librollout_")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("surface", [True, False], ids=["contact", "free"])
+def test_cuda_kernel_matches_plain_version(setup, surface):
+    """The hand-written kernel against its plain version on the card,
+    float64, at the tolerance of the JAX package's kernel-vs-scan test
+    (rtol 5e-9 / atol 1e-10 of scale).  `python3 chip_smoke.py` runs the
+    same comparison at the flagship shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the rollout kernel has no CPU build")
+    knot = taction.make_augmented_knot(
+        panda_model_from_numpy({k: np.asarray(v) for k, v in setup["mj"]._asdict().items()},
+                               dtype=torch.float64, device="cuda"),
+        TWeights(**W_KW), surface)
+    consts = rc.pack_knot_consts(knot.model, knot.W, knot.surface, torch.float64)
+    x0, xs, us, K, kff, fs, feas = setup["arrays"]
+    args = ([T(a).cuda() for a in (x0, xs, us, K, kff, fs)] + [torch.as_tensor(feas).cuda()]
+            + [type(setup["t_rr"])(*(a.cuda() for a in r)) for r in (setup["t_rr"], setup["t_rT"])])
+    before = rc.rollout.launches
+    got = rc.rollout(knot, consts, *args, NA)
+    torch.cuda.synchronize()
+    assert rc.rollout.launches == before + 1
+    want = rc.rollout_reference(knot, *args, NA)
+    assert_close([g.cpu() for g in got], [w.cpu() for w in want], 5e-9, 1e-10, "kernel")
+
+
+# ---------------------------------------------------------------------------
+# the golden fixture
+# ---------------------------------------------------------------------------
+
+GOLDEN = "tests/fixtures/solver_golden.npz"
+
+
+def test_solve_matches_golden_fixture():
+    """The force-feedback contact case of the framework-free golden fixture
+    (``tests/test_solver_golden.py``: float64, N=12, 10 iterations, its own
+    weights), solved by the port with both modes "kernel" (the plain
+    versions on the CPU), at that test's bar: us atol 1e-6, cost rtol 1e-8."""
+    from pathlib import Path
+    from ffmpc_tpu_torch.core import make_panda_model, gravity_torque
+    from ffmpc_tpu_torch.mpc.controllers import make_vertical_down_R
+    path = Path(__file__).resolve().parents[1] / GOLDEN
+    model = make_panda_model("plant", dtype=torch.float64, device="cpu")
+    q0 = torch.as_tensor(KEYFRAMES["neutral"], dtype=torch.float64)
+    tau_g = gravity_torque(model, q0)
+    W = TWeights(dt_ocp=0.01, w_ee_pos=1.2e3, w_q_soft_limits=8.0,
+                 w_tau_soft_limits=2.0, w_plane_z=1.2e3, w_vz=5.0e2,
+                 contact_gains=(140.0, 80.0), fn_des=22.0, w_fn=28.0,
+                 ff_alpha=float(np.exp(-2 * np.pi * 25.0 * 0.01)),
+                 w_w=6.0e-4, w_w_soft_limits=2.0, w_y=8.0e-4)
+    Ng = 12
+    x0 = torch.cat([q0, torch.zeros(7, dtype=torch.float64), tau_g])
+    refs_run, ref_T = t_build_refs(
+        TTraj(**TRAJ_KW), torch.tensor([1.2], dtype=torch.float64), Ng, W.dt_ocp,
+        torch.cat([q0, torch.zeros(7, dtype=torch.float64)]), tau_g,
+        torch.as_tensor(make_vertical_down_R()), y_ref=x0, dtype=torch.float64,
+        device="cpu")
+    knot = taction.make_augmented_knot(model, W, surface=True)
+    res = t_solve(knot, refs_run, ref_T, x0[None], x0.repeat(1, Ng + 1, 1),
+                  tau_g.repeat(1, Ng, 1), TSettings(max_iters=10))
+    with np.load(path) as z:
+        us_ref = z["ff_contact_vector_us"]
+        cost_ref = float(z["ff_contact_vector_cost"])
+    assert np.abs(res.us[0].numpy() - us_ref).max() <= 1e-6
+    assert np.isclose(float(res.cost[0]), cost_ref, rtol=1e-8)

@@ -1,7 +1,10 @@
-"""The ported slice as a whole: batched BoxFDDP solve of the force-feedback
-OCP, PyTorch port (CPU, float64, plain backward sweep) == the JAX package's
+"""The ported slices as a whole: batched BoxFDDP solve of the force-feedback
+OCP, PyTorch port (CPU, float64, default settings: backward and rollout mode
+"kernel", so the plain versions on these CPU tensors) == the JAX package's
 ``make_batched_solve_fn(..., calc_mode="vector", solve_impl="vmap")`` with
-the fused backward kernel in interpret mode.
+the fused backward kernel in interpret mode.  (The rollout's plain version
+is held against the JAX scalar knot, the TPU rollout kernel's own body, in
+``test_torch_rollout.py``.)
 
 Decisions (iterations, converged / diverged / feasible flags) must be equal.
 Trajectories, gains, cost and stop agree to rtol 1e-6 / atol 1e-7, the bar the
@@ -71,7 +74,8 @@ def FDDPResultNumpy(res):
 
 def t_solver(problem, max_iters, mode="plain"):
     return t_make(problem["mt"], t_weights(),
-                  TSettings(max_iters=max_iters, backward_mode=mode), t_traj(),
+                  TSettings(max_iters=max_iters, backward_mode=mode, rollout_mode=mode),
+                  t_traj(),
                   TEpisode(controller="force_feedback", horizon=N),
                   problem["q0"], dtype=torch.float64, device="cpu")
 
@@ -88,7 +92,9 @@ def test_batched_solve_equals_jax(problem, max_iters, want_iters):
         JEpisode(controller="force_feedback", horizon=N, deriv_mode="analytic"),
         problem["q0"], dtype=jnp.float64, calc_mode="vector", solve_impl="vmap"))
     rj = solve_j(*[jnp.asarray(a) for a in problem["args"]])
-    rt = t_solver(problem, max_iters)(*problem["args"])
+    st = TSettings(max_iters=max_iters)
+    assert (st.backward_mode, st.rollout_mode) == ("kernel", "kernel")
+    rt = t_solver(problem, max_iters, mode="kernel")(*problem["args"])
 
     for name in FLAG_FIELDS:
         assert np.array_equal(getattr(rt, name).numpy(), np.asarray(getattr(rj, name))), name
