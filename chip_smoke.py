@@ -2,8 +2,9 @@
 
 Drives the port's main path (a batch of warm-started, full-horizon BoxFDDP
 solves of the flagship force-feedback contact problem: nx=21, nu=7, N=40,
-10 iterations, 10 step lengths, float32, B=256 and B=1024, the backward sweep
-and the line-search rollout on their CUDA kernels) through
+10 iterations, 10 step lengths, float32, B=256 and B=1024, the derivative
+pass, the backward sweep and the line-search rollout on their CUDA kernels)
+through
 `ffmpc_tpu_torch.run.batch_runner.make_batched_solve_fn`, after building every
 CUDA kernel from `ffmpc_tpu_torch/csrc/` and holding each against its plain
 PyTorch version on the card.  Phases: device, build, kernels,
@@ -12,7 +13,8 @@ small_reference, golden (the framework-free solver fixture), solve, stages
 raises, so the exit code is non-zero and the final line is not printed.
 
 The last line is `{"ok": true, "device": {...}}`; the line before it is
-`{"kernels": [...]}` with, for every kernel, its launches on the main path,
+`{"kernels": [...]}` with, for every kernel (backward_sweep, rollout,
+knot_diff), its launches on the main path,
 its error against the plain version, its time, the plain version's time and
 the card's bound for the same work.  Needs a CUDA device: without one it
 exits non-zero before printing any result.
@@ -31,7 +33,10 @@ import numpy as np
 import torch
 
 from ffmpc_tpu_torch.core import KEYFRAMES, gravity_torque, make_panda_model
-from ffmpc_tpu_torch.ocp.action import make_augmented_knot
+from ffmpc_tpu_torch.core.dynamics import fwd_dynamics_contact
+from ffmpc_tpu_torch.core.kinematics import fk
+from ffmpc_tpu_torch.core.spatial import log3
+from ffmpc_tpu_torch.ocp.action import KnotDeriv, make_augmented_knot
 from ffmpc_tpu_torch.ocp.problem import build_problem_refs
 from ffmpc_tpu_torch.ocp.weights import flagship_trajectory, flagship_weights
 from ffmpc_tpu_torch.mpc.controllers import make_vertical_down_R
@@ -40,8 +45,10 @@ from ffmpc_tpu_torch.ocp.weights import ProblemRefs
 from ffmpc_tpu_torch.solver import _cuda_build
 from ffmpc_tpu_torch.solver.backward_cuda import (backward_box,
                                                   backward_box_reference)
+from ffmpc_tpu_torch.solver.diff_cuda import diff_all, diff_reference
 from ffmpc_tpu_torch.solver.fddp import (FDDPSettings, KGAIN_REG, accept_step,
-                                         backward_inputs, solve as fddp_solve)
+                                         backward_inputs, control_bounds,
+                                         solve as fddp_solve)
 from ffmpc_tpu_torch.solver.rollout_cuda import (pack_knot_consts, rollout,
                                                  rollout_reference)
 
@@ -131,6 +138,33 @@ ROLLOUT_F32_FACTOR, ROLLOUT_F32_FLOOR = 4.0, 1e-6
 ROLLOUT_MIN_AGREE_F32 = 0.9
 ROLLOUT_NONFINITE_AGREE = 0.99
 ROLLOUT_FIELDS = ("xs_try", "us_try", "cost_try")
+
+# Diff kernel vs its plain version, errors per output field, with a field's
+# scale = max(max|plain| over the batch, 1) (tests/test_diff_pallas.py's).
+# float64: every field within DIFF_TOL_F64 of its scale on the entries finite
+# in both, and the same (knot, field) pairs non-finite (per knot, not per
+# entry: the plain version's dense products spread a NaN over a Jacobian's
+# structural zeros, the kernel multiplies live columns only).  Both evaluate
+# the same derivatives; nvcc contracts a*b+c into FMAs, hence 1e-11 and not
+# the JAX suite's 1e-12.
+DIFF_TOL_F64 = 1e-11
+# float32, per knot and field, against the plain float64 version on the same
+# inputs: the kernel's largest error at the knot is at most DIFF_F32_FACTOR
+# times the plain float32 version's own largest error there, plus
+# DIFF_F32_FLOOR of the field's scale; on EVERY knot but those where a
+# barrier's active side can differ between two float32 evaluations.  The only
+# barrier on a computed residual is the unilateral one on the contact force
+# (the others act on states and controls, which both versions read alike);
+# a knot is on its edge when the float64 force lies within
+# UNILATERAL_EDGE_N newtons of the bound, about 100x the float32 rounding of
+# the force.  Such knots are counted, may be at most DIFF_MAX_EDGE_SHARE of
+# the knots, and their largest error is printed.  Knots whose orientation
+# error lies within HALF_TURN_BAND of a half turn (where float32 log3 breaks
+# down, ROADMAP queue 3) are counted, not exempted.
+DIFF_F32_FACTOR, DIFF_F32_FLOOR = 4.0, 1e-6
+UNILATERAL_EDGE_N = 1e-2
+DIFF_MAX_EDGE_SHARE = 1e-3
+HALF_TURN_BAND = 1e-3
 
 # the solver golden fixture's force-feedback case (tests/test_solver_golden.py)
 GOLDEN_FIXTURE = "tests/fixtures/solver_golden.npz"
@@ -247,6 +281,37 @@ def rollout_bytes(args, outs):
     return sum(a.numel() * a.element_size() for a in tensors)
 
 
+def knot_diff_flops(terminal=False):
+    """Operations of one knot's derivatives, counted from the loops of
+    csrc/knot_chain.cuh::knot_diff_one: a Dual<T> multiply counts 4 (three
+    multiplies, one add), a Dual add 2, a Dual times a constant 2; sin, cos,
+    sqrt, acos and each division 1.  The work does not depend on the data."""
+    rnea = 18 + 707 + 51 + 1042      # gravity seed, forward, tool acceleration, backward
+    primal = (630                      # forward kinematics and tool frame
+              + 2611                   # mass matrix, link by link, armature
+              + rnea                   # bias and drift at a = 0
+              + 84 + 147 + 98          # frame Jacobian, 7x7 Cholesky, one solve
+              + 169 + 191              # contact solve; Euler step, tool velocity, log3
+              + 740)                   # residuals, activations, costs
+    q_pass = 28 + 1638 + 3 * rnea + 252 + 120 + 140   # dual FK, RNEA, Jacobian, log3
+    v_pass = 3 * rnea + 20
+    solves = 14 * 130 + 7 * 116        # implicit-function columns, M^-1 columns
+    assembly = 294 + 3171              # Lx, Lxx over the groups' live columns
+    dynamics = 0 if terminal else 686  # Fx, Fu
+    return float(primal + 7 * q_pass + 7 * v_pass + solves + assembly + dynamics)
+
+
+def diff_flops(B, N):
+    return B * (N * knot_diff_flops() + knot_diff_flops(terminal=True))
+
+
+def diff_bytes(inputs, out):
+    """Each input read once, each output written once."""
+    xs, us, refs_run, ref_T = inputs
+    tensors = [xs, us, *refs_run, *ref_T, *out.run, *out[1:]]
+    return sum(a.numel() * a.element_size() for a in tensors)
+
+
 def flagship(dtype, device="cuda"):
     model = make_panda_model("plant", dtype=dtype, device=device)
     W = flagship_weights()
@@ -284,9 +349,11 @@ def main_path_first_iteration(B, dtype=torch.float32):
     refs_run = ProblemRefs(*(a.contiguous() for a in refs_run))
     ref_T = ProblemRefs(*(a.contiguous() for a in ref_T))
     feasible = torch.zeros(B, dtype=torch.bool, device="cuda")
-    bi = backward_inputs(knot, refs_run, ref_T, y0s, xs, us, feasible)
+    bounds = control_bounds(knot, dtype, "cuda")
+    bi = backward_inputs(diff_reference(knot, refs_run, ref_T, xs, us), y0s, xs, us,
+                         feasible, *bounds)
     return dict(knot=knot, bi=bi, refs_run=refs_run, ref_T=ref_T, x0=y0s,
-                xs=xs, us=us, cost_cur=bi.cost_cur)
+                xs=xs, us=us, cost_cur=bi.cost_cur, bounds=bounds)
 
 
 def main_path_backward_args(B):
@@ -616,6 +683,191 @@ def phase_rollout_kernel():
             "by_batch": {str(b): timing[b] for b in BATCHES}}
 
 
+DIFF_TERM_FIELDS = ("cost_T", "LxT", "LxxT")
+
+
+def diff_fields(d):
+    """(name, tensor, number of leading knot dims) of every output field."""
+    return ([(f"run.{n}", getattr(d.run, n), 2) for n in KnotDeriv._fields]
+            + [(n, t, 1) for n, t in zip(DIFF_TERM_FIELDS, d[1:])])
+
+
+def per_knot(a, lead):
+    """(knots...) view of a field: one row of entries per knot."""
+    return a.reshape(a.shape[:lead] + (-1,))
+
+
+def to_double_refs(refs):
+    return ProblemRefs(*(a.double() for a in refs))
+
+
+def unilateral_edge(model64, W, refs_run, ref_T, xs):
+    """Running (B, N) and terminal (B,) masks of the knots whose float64
+    contact force lies within UNILATERAL_EDGE_N of the unilateral barrier's
+    bound (the knots where two float32 evaluations may take different sides)."""
+    def force(y, ref):
+        dyn = fwd_dynamics_contact(
+            model64, y[..., :7], y[..., 7:14], y[..., 14:], nc1=True,
+            ref_pos=ref.p_ref[..., 2] - W.z_press, baumgarte_kp=W.contact_gains[0],
+            baumgarte_kd=W.contact_gains[1], damping_c=W.contact_inv_damping)
+        return dyn.force[..., 0]
+    xs = xs.double()
+    f_run = force(xs[:, :-1], to_double_refs(refs_run))
+    f_T = force(xs[:, -1], to_double_refs(ref_T))
+    return ((f_run - W.friction_margin).abs() <= UNILATERAL_EDGE_N,
+            (f_T - W.friction_margin).abs() <= UNILATERAL_EDGE_N)
+
+
+def half_turn_knots(model64, refs_run, ref_T, xs):
+    """Knots whose tool orientation error lies within HALF_TURN_BAND of pi."""
+    xs = xs.double()
+    n = 0
+    for y, ref in ((xs[:, :-1], refs_run), (xs[:, -1], ref_T)):
+        R = fk(model64, y[..., :7]).ee_R
+        err = log3(ref.R_des.double().transpose(-1, -2) @ R).norm(dim=-1)
+        n += int((err > np.pi - HALF_TURN_BAND).sum())
+    return n
+
+
+def seeded_diff_args(B, N, dtype, seed):
+    """Seeded derivative-pass inputs: the states, controls and references of
+    the seeded rollout inputs (states around the neutral pose, controls around
+    gravity torque, 2 Nm apart)."""
+    knot, consts, args = seeded_rollout_args(B, N, dtype, seed)
+    _, xs, us, _, _, _, _, refs_run, ref_T = args
+    return knot, consts, (xs, us, refs_run, ref_T)
+
+
+def main_path_diff_args(B, dtype=torch.float32):
+    """The derivative pass's inputs in the first iteration of the flagship
+    solve."""
+    it = main_path_first_iteration(B, dtype)
+    knot = it["knot"]
+    consts = pack_knot_consts(knot.model, knot.W, knot.surface, dtype)
+    return knot, consts, (it["xs"], it["us"], it["refs_run"], it["ref_T"])
+
+
+def phase_diff_kernel():
+    """The knot-derivative kernel against its plain version on the card at
+    N=40, B=1024, running and terminal knots: seeded inputs and the main
+    path's own first-iteration inputs, float64 and float32, and the
+    free-space instantiation on the seeded inputs at float64; then its time
+    against the plain version's at both batch sizes.  Returns the knot_diff
+    entry of the `kernels` line."""
+    B = BATCHES[-1]
+    W = flagship_weights()
+    model64 = flagship(torch.float64)[0]
+    knot64 = make_augmented_knot(model64, W, surface=True)
+    checks, failures = [], []
+
+    def check(label, knot, consts, inputs):
+        xs, us, refs_run, ref_T = inputs
+        f64 = xs.dtype == torch.float64
+        out_k = diff_all(knot, consts, refs_run, ref_T, xs, us)
+        torch.cuda.synchronize()
+        out_p = diff_reference(knot, refs_run, ref_T, xs, us)
+        torch.cuda.synchronize()
+        rec = {"case": label, "B": int(xs.shape[0]), "N": int(us.shape[1]),
+               "dtype": "float64" if f64 else "float32",
+               "nonfinite_knots_plain": {}, "max_abs_err": {}, "scale": {}}
+        ok = True
+        if f64:
+            rec["max_rel_err"] = {}
+            for (name, k, lead), (_, p, _) in zip(diff_fields(out_k), diff_fields(out_p)):
+                bad_k, bad_p = ((~torch.isfinite(per_knot(a, lead))).any(-1) for a in (k, p))
+                same = torch.equal(bad_k, bad_p)
+                both = torch.isfinite(k) & torch.isfinite(p)
+                fin = torch.isfinite(p)
+                scale = max(float(p[fin].abs().max()), 1.0) if bool(fin.any()) else 1.0
+                err = float((k - p)[both].abs().max()) if bool(both.any()) else 0.0
+                rec["nonfinite_knots_plain"][name] = int(bad_p.sum())
+                rec["max_abs_err"][name] = err
+                rec["scale"][name] = scale
+                rec["max_rel_err"][name] = err / scale
+                if not same:
+                    rec.setdefault("nonfinite_knots_differ", []).append(name)
+                ok = ok and same and err <= DIFF_TOL_F64 * scale
+        else:
+            in64 = (xs.double(), us.double(), to_double_refs(refs_run), to_double_refs(ref_T))
+            out_64 = diff_reference(knot64, in64[2], in64[3], in64[0], in64[1])
+            edge_run, edge_T = unilateral_edge(model64, W, refs_run, ref_T, xs)
+            n_knots = edge_run.numel() + edge_T.numel()
+            n_edge = int(edge_run.sum() + edge_T.sum())
+            rec.update(knots=n_knots, unilateral_edge_knots=n_edge,
+                       half_turn_knots=half_turn_knots(model64, refs_run, ref_T, xs),
+                       violations={}, edge_knot_max_rel_err={}, max_abs_err_vs_plain64={},
+                       max_rel_err_kernel32__plain32={}, worst_ratio_over_floor={})
+            ok = n_edge <= DIFF_MAX_EDGE_SHARE * n_knots
+            for (name, k, lead), (_, p, _), (_, r, _) in zip(
+                    diff_fields(out_k), diff_fields(out_p), diff_fields(out_64)):
+                edge = edge_run if lead == 2 else edge_T
+                scale = max(float(r.abs().max()), 1.0)
+                ek = per_knot((k.double() - r).abs(), lead).amax(-1)
+                ep = per_knot((p.double() - r).abs(), lead).amax(-1)
+                floor = DIFF_F32_FLOOR * scale
+                over = ~(ek <= DIFF_F32_FACTOR * ep + floor)    # NaN counts as over
+                rec["max_abs_err"][name] = float(per_knot((k - p).abs(), lead).max())
+                rec["max_abs_err_vs_plain64"][name] = float(ek.max())
+                rec["scale"][name] = scale
+                rec["nonfinite_knots_plain"][name] = int((~torch.isfinite(ep)).sum())
+                rec["max_rel_err_kernel32__plain32"][name] = [float(ek.max()) / scale,
+                                                              float(ep.max()) / scale]
+                rec["worst_ratio_over_floor"][name] = float(
+                    ((ek - floor) / ep.clamp_min(1e-300)).max())
+                rec["violations"][name] = int((over & ~edge).sum())
+                rec["edge_knot_max_rel_err"][name] = (
+                    float(ek[edge].max()) / scale if bool(edge.any()) else None)
+                ok = ok and not bool((over & ~edge).any())
+        rec["ok"] = bool(ok)
+        checks.append(rec)
+        if not ok:
+            failures.append(label + "/" + rec["dtype"])
+        return rec
+
+    main_rec = None
+    knot, consts, inputs = seeded_diff_args(B, HORIZON, torch.float64, 11)
+    free = make_augmented_knot(knot.model, W, surface=False)
+    check("seeded_free_space", free,
+          pack_knot_consts(free.model, W, free.surface, torch.float64), inputs)
+    for dtype in (torch.float64, torch.float32):
+        check("seeded", *seeded_diff_args(B, HORIZON, dtype, 11))
+        rec = check("main_path_first_iteration", *main_path_diff_args(B, dtype))
+        if dtype == torch.float32:
+            main_rec = rec
+
+    timing = {}
+    for b in BATCHES:
+        knot, consts, (xs, us, refs_run, ref_T) = main_path_diff_args(b)
+        out = diff_all(knot, consts, refs_run, ref_T, xs, us)
+        ms = cuda_time_ms(lambda: diff_all(knot, consts, refs_run, ref_T, xs, us))
+        plain_ms = cuda_time_ms(lambda: diff_reference(knot, refs_run, ref_T, xs, us),
+                                reps=1, rounds=3)
+        byte_ms = diff_bytes((xs, us, refs_run, ref_T), out) / PEAK_BYTES_PER_S * 1e3
+        flop_ms = diff_flops(b, HORIZON) / PEAK_FP32_FLOPS * 1e3
+        timing[b] = {"ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": max(byte_ms, flop_ms),
+                     "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
+                     "bytes_ms": byte_ms, "operations_ms": flop_ms}
+    emit({"phase": "kernels", "kernel": "knot_diff", "checks": checks,
+          "timing_float32": timing})
+    if failures:
+        raise RuntimeError(f"diff kernel disagrees with its plain version: {failures}")
+    t = timing[B]
+    return {"name": "knot_diff", "route": "cuda",
+            "source": "ffmpc_tpu_torch/csrc/knot_diff.cu",
+            "replaces": "ffmpc_tpu/solver/diff_pallas.py:159",
+            "also_replaces": "ffmpc_tpu/solver/diff_pallas.py:55",
+            "launches": None,
+            "max_abs_err": max(main_rec["max_abs_err"].values()),
+            "max_abs_err_by_field": main_rec["max_abs_err"],
+            "max_rel_err_by_field": {n: e / main_rec["scale"][n]
+                                     for n, e in main_rec["max_abs_err"].items()},
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "shape": {"B": B, "N": HORIZON, "nx": NX, "nu": NU, "dtype": "float32"},
+            "by_batch": {str(b): timing[b] for b in BATCHES}}
+
+
 def assert_result_ok(res, B, N):
     shapes = dict(xs=(B, N + 1, NX), us=(B, N, NU), K=(B, N, NU, NX), k=(B, N, NU),
                   cost=(B,), stop=(B,), iters=(B,), converged=(B,), diverged=(B,),
@@ -629,9 +881,9 @@ def assert_result_ok(res, B, N):
 
 
 def phase_small_reference():
-    """Correctness on a small input: float64, B=4, N=5, both kernels on
-    (backward and rollout mode "kernel") against both plain versions on the
-    card.  rtol 1e-6 / atol 1e-7 scaled by each field's largest magnitude
+    """Correctness on a small input: float64, B=4, N=5, the three kernels on
+    (backward, rollout and diff mode "kernel") against the plain versions on
+    the card.  rtol 1e-6 / atol 1e-7 scaled by each field's largest magnitude
     (reassociated sums; the bar of the CPU tests)."""
     dtype = torch.float64
     model, W, traj, ep, q0 = flagship(dtype)
@@ -643,7 +895,8 @@ def phase_small_reference():
     res = {}
     for mode in ("kernel", "plain"):
         solve = make_batched_solve_fn(
-            model, W, FDDPSettings(max_iters=3, backward_mode=mode, rollout_mode=mode),
+            model, W, FDDPSettings(max_iters=3, backward_mode=mode, rollout_mode=mode,
+                                   diff_mode=mode),
             traj, ep, q0, dtype=dtype, device="cuda")
         res[mode] = solve(ts, y0s, xs, us)
     torch.cuda.synchronize()
@@ -666,8 +919,9 @@ def phase_small_reference():
 def phase_golden():
     """The force-feedback contact case of the framework-free solver fixture
     (tests/test_solver_golden.py: float64, N=12, 10 iterations, its own
-    weights), solved on the card with both kernels, at that test's bar: us
-    atol 1e-6, cost rtol 1e-8.  The measured distance is printed."""
+    weights), solved on the card with the three kernels (the default
+    settings), at that test's bar: us atol 1e-6, cost rtol 1e-8.  The
+    measured distance is printed."""
     from ffmpc_tpu_torch.ocp.weights import OCPWeights
     dtype = torch.float64
     model = make_panda_model("plant", dtype=dtype, device="cuda")
@@ -685,7 +939,7 @@ def phase_golden():
         W.dt_ocp, torch.cat([q0, torch.zeros(7, dtype=dtype, device="cuda")]), tau_g,
         make_vertical_down_R(), y_ref=x0, dtype=dtype, device="cuda")
     knot = make_augmented_knot(model, W, surface=True)
-    launches = (backward_box.launches, rollout.launches)
+    launches = (backward_box.launches, rollout.launches, diff_all.launches)
     res = fddp_solve(knot, refs_run, ref_T, x0[None], x0.repeat(1, N + 1, 1),
                      tau_g.repeat(1, N, 1), FDDPSettings(max_iters=10))
     torch.cuda.synchronize()
@@ -698,7 +952,8 @@ def phase_golden():
            "iters": int(res.iters[0]), "alpha_hist": res.alpha_hist[0].tolist(),
            "max_abs_du": du, "rel_dcost": dcost,
            "launches": {"backward_sweep": backward_box.launches - launches[0],
-                        "rollout": rollout.launches - launches[1]}}
+                        "rollout": rollout.launches - launches[1],
+                        "knot_diff": diff_all.launches - launches[2]}}
     emit(rec)
     if not (du <= 1e-6 and dcost <= 1e-8):
         raise RuntimeError(f"golden fixture: max|du| {du}, relative cost {dcost}")
@@ -749,11 +1004,12 @@ def rate_record(B, times):
 
 
 def phase_solve():
-    """The main path at full width: both kernels (backward and rollout mode
-    "kernel") at B=256 and B=1024, with the launch counts read around its
-    first timed solve; then the yardstick, both plain versions, on the same
-    inputs; and at B=256 the earlier path with the backward kernel alone
-    (plain rollout), at a smaller depth.  Each mode first runs one untimed
+    """The main path at full width: the three kernels (backward, rollout and
+    diff mode "kernel") at B=256 and B=1024, with the launch counts read
+    around its first timed solve; then the yardstick, the three plain
+    versions, on the same inputs; and at B=256 two more paths, the backward
+    and rollout kernels with the plain derivative pass, and the backward
+    kernel alone.  Each mode first runs one untimed
     one-iteration solve (first uses of the libraries and of `torch.func`),
     then timed solves of the same inputs (SOLVE_REPEATS for the main path,
     PLAIN_REPEATS for the slower modes); the median and the range are
@@ -783,20 +1039,24 @@ def phase_solve():
     model, W, traj, ep, q0 = flagship(dtype)
     tau_g = gravity_torque(model, torch.as_tensor(q0, dtype=dtype, device="cuda")).cpu().numpy()
 
-    def solver(bw, ro, dt=dtype, mdl=model, iters=ITERS):
+    def solver(modes, dt=dtype, mdl=model, iters=ITERS):
+        bw, ro, df = modes
         return make_batched_solve_fn(
-            mdl, W, FDDPSettings(max_iters=iters, backward_mode=bw, rollout_mode=ro),
+            mdl, W, FDDPSettings(max_iters=iters, backward_mode=bw, rollout_mode=ro,
+                                 diff_mode=df),
             traj, ep, q0, surface=True, dtype=dt, device="cuda")
 
-    def run_mode(bw, ro, args, repeats):
+    def run_mode(modes, args, repeats):
         """Warm-up, then timed solves; launch counts of the first timed
         solve, set to 0 just before it and read just after."""
-        solver(bw, ro, iters=1)(*args)
-        solve = solver(bw, ro)
+        solver(modes, iters=1)(*args)
+        solve = solver(modes)
         backward_box.launches = 0
         rollout.launches = 0
+        diff_all.launches = 0
         res, ms = timed_solves(solve, args, 1)
-        counts = {"backward_sweep": backward_box.launches, "rollout": rollout.launches}
+        counts = {"backward_sweep": backward_box.launches, "rollout": rollout.launches,
+                  "knot_diff": diff_all.launches}
         ms += timed_solves(solve, args, repeats - 1)[1]
         assert_result_ok(res, args[1].shape[0], HORIZON)
         return res, ms, counts
@@ -813,18 +1073,27 @@ def phase_solve():
         if not ok:
             raise RuntimeError(f"B={rec['B']}: {name} and plain mode disagree: {rec}")
 
-    solve_plain64 = solver("plain", "plain", torch.float64, flagship(torch.float64)[0])
+    KERNELS, PLAIN = ("kernel",) * 3, ("plain",) * 3
+    DIFF_PLAIN, BACKWARD_ONLY = ("kernel", "kernel", "plain"), ("kernel", "plain", "plain")
+
+    def launched(counts, res, expect):
+        """Each kernel of the path launched once an iteration, the others
+        never."""
+        iters_run = max(int(res.iters.max()), 1)
+        for name, mode in zip(("backward_sweep", "rollout", "knot_diff"), expect):
+            if (counts[name] < iters_run) if mode == "kernel" else counts[name]:
+                raise RuntimeError(f"B={res.us.shape[0]}: launches {counts} for "
+                                   f"{iters_run} iterations of modes {expect}")
+
+    solve_plain64 = solver(PLAIN, torch.float64, flagship(torch.float64)[0])
     rng = np.random.default_rng(0)
     launches = {}
     for B in BATCHES:
         args = warm_start_args(B, q0, tau_g, rng)
-        res_k, ms_k, counts = run_mode("kernel", "kernel", args, SOLVE_REPEATS)
+        res_k, ms_k, counts = run_mode(KERNELS, args, SOLVE_REPEATS)
         launches[B] = counts
-        iters_run = int(res_k.iters.max())
-        if min(counts.values()) < max(iters_run, 1):
-            raise RuntimeError(
-                f"B={B}: kernel launches {counts} for {iters_run} iterations")
-        res_p, ms_p, counts_p = run_mode("plain", "plain", args, PLAIN_REPEATS)
+        launched(counts, res_k, KERNELS)
+        res_p, ms_p, counts_p = run_mode(PLAIN, args, PLAIN_REPEATS)
         if any(counts_p.values()):
             raise RuntimeError(f"B={B}: plain mode launched kernels: {counts_p}")
         kp = decisions_and_distance(res_k, res_p)
@@ -843,14 +1112,14 @@ def phase_solve():
         if B == BATCHES[0]:
             p64 = decisions_and_distance(res_p, solve_plain64(*args))
             rec["plain32_vs_plain64"] = p64
-            res_b, ms_b, counts_b = run_mode("kernel", "plain", args, PLAIN_REPEATS)
-            if counts_b["rollout"] or counts_b["backward_sweep"] < int(res_b.iters.max()):
-                raise RuntimeError(f"B={B}: backward-kernel path launches {counts_b}")
-            kb = decisions_and_distance(res_b, res_p)
-            rec["backward_kernel_only"] = {"launches": counts_b,
-                                           "rate": rate_record(B, ms_b),
-                                           "vs_plain32": kb}
-            gate("backward-kernel path", rec, kb, p64)
+            for key, modes in (("plain_diff", DIFF_PLAIN),
+                               ("backward_kernel_only", BACKWARD_ONLY)):
+                res_b, ms_b, counts_b = run_mode(modes, args, PLAIN_REPEATS)
+                launched(counts_b, res_b, modes)
+                kb = decisions_and_distance(res_b, res_p)
+                rec[key] = {"launches": counts_b, "rate": rate_record(B, ms_b),
+                            "vs_plain32": kb}
+                gate(key, rec, kb, p64)
         emit(rec)
         gate("kernel mode", rec, kp, p64)
     return launches
@@ -861,28 +1130,44 @@ def phase_stages():
     iteration's inputs at B=1024, float32, each module-level function that
     `fddp.solve` calls timed on the host clock around the call, ended by
     `torch.cuda.synchronize()` (the solve is host-bound, so kernel-only
-    events would hide the launch cost).  Median of 3 calls each after one
-    warm-up, in ms."""
+    events would hide the launch cost).  The derivative pass is split into
+    the knot derivatives (the kernel, or the plain version's running and
+    terminal calls timed apart) and the glue `backward_inputs` (cost, gaps,
+    bounds); the final cost of the returned trajectory (`knot.calc` +
+    `knot.term_calc`, once per solve) is timed too.  Median of 3 calls each
+    after one warm-up, in ms."""
     B = BATCHES[-1]
     it = main_path_first_iteration(B)
     knot, bi = it["knot"], it["bi"]
+    rr, rT, xs, us = it["refs_run"], it["ref_T"], it["xs"], it["us"]
     reg = torch.full((B,), 1e-9, dtype=torch.float32, device="cuda")
     consts = pack_knot_consts(knot.model, knot.W, knot.surface, torch.float32)
     state = {}
 
-    def deriv():
-        state["bi"] = backward_inputs(knot, it["refs_run"], it["ref_T"], it["x0"],
-                                      it["xs"], it["us"], bi.feasible)
+    def diff_kernel():
+        state["d"] = diff_all(knot, consts, rr, rT, xs, us)
+
+    def diff_running():
+        knot.diff(rr, xs[:, :-1], us)
+
+    def diff_terminal():
+        knot.term_diff(rT, xs[:, -1])
+
+    def glue():
+        backward_inputs(state["d"], it["x0"], xs, us, bi.feasible, *it["bounds"])
 
     def bw():
         state["out"] = backward_box(*bi.args, reg, reg, boxqp_iters=BOXQP_ITERS,
                                     kgain_reg=KGAIN_REG)
 
-    deriv()
+    def bw_plain():
+        backward_box_reference(*bi.args, reg, reg, boxqp_iters=BOXQP_ITERS,
+                               kgain_reg=KGAIN_REG)
+
+    diff_kernel()
     bw()
     K, kff, _, dg, dq, _, w_all = state["out"]
-    r_args = (it["x0"], it["xs"], it["us"], K, kff, bi.fs, bi.feasible,
-              it["refs_run"], it["ref_T"])
+    r_args = (it["x0"], xs, us, K, kff, bi.fs, bi.feasible, rr, rT)
 
     def ro_kernel():
         state["try"] = rollout(knot, consts, *r_args, N_ALPHAS)
@@ -892,8 +1177,12 @@ def phase_stages():
 
     def accept():
         xs_try, us_try, cost_try = state["try"]
-        accept_step(FDDPSettings(), it["xs"], it["us"], bi.cost_cur, xs_try,
-                    us_try, cost_try, w_all, dg, dq)
+        accept_step(FDDPSettings(), xs, us, bi.cost_cur, xs_try, us_try, cost_try,
+                    w_all, dg, dq)
+
+    def final_cost():
+        _, costs = knot.calc(rr, xs[:, :-1], us)
+        torch.sum(costs, dim=1) + knot.term_calc(rT, xs[:, -1])
 
     def host_ms(fn, n=3):
         fn()
@@ -906,33 +1195,43 @@ def phase_stages():
             times.append((time.perf_counter() - t0) * 1e3)
         return float(np.median(times))
 
-    stages = {"backward_inputs": host_ms(deriv), "backward_box": host_ms(bw),
+    stages = {"knot_diff": host_ms(diff_kernel),
+              "diff_reference_running": host_ms(diff_running),
+              "diff_reference_terminal": host_ms(diff_terminal),
+              "backward_inputs": host_ms(glue),
+              "backward_box": host_ms(bw), "backward_box_reference": host_ms(bw_plain),
               "rollout": host_ms(ro_kernel), "rollout_reference": host_ms(ro_plain),
-              "accept_step": host_ms(accept)}
-    per_iter = {mode: stages["backward_inputs"] + stages["backward_box"]
-                + stages[name] + stages["accept_step"]
-                for mode, name in (("kernel", "rollout"), ("plain", "rollout_reference"))}
+              "accept_step": host_ms(accept), "final_cost_per_solve": host_ms(final_cost)}
+    plain_diff = stages["diff_reference_running"] + stages["diff_reference_terminal"]
+    per_iter = {
+        "kernel": stages["knot_diff"] + stages["backward_box"] + stages["rollout"],
+        "plain_diff": plain_diff + stages["backward_box"] + stages["rollout"],
+        "plain": plain_diff + stages["backward_box_reference"] + stages["rollout_reference"]}
+    for k in per_iter:
+        per_iter[k] += stages["backward_inputs"] + stages["accept_step"]
+    kernel_stages = ("knot_diff", "backward_inputs", "backward_box", "rollout",
+                     "accept_step")
     emit({"phase": "stages", "B": B, "N": HORIZON, "dtype": "float32",
-          "ms": stages, "iteration_ms_by_rollout_mode": per_iter,
+          "ms": stages, "iteration_ms_by_mode": per_iter,
           "share_of_kernel_mode_iteration": {
-              k: stages[k] / per_iter["kernel"]
-              for k in ("backward_inputs", "backward_box", "rollout", "accept_step")}})
+              k: stages[k] / per_iter["kernel"] for k in kernel_stages},
+          "final_cost_share_of_kernel_mode_solve": stages["final_cost_per_solve"] / (
+              ITERS * per_iter["kernel"] + stages["final_cost_per_solve"])})
 
 
 def main():
     smi = phase_device()
     phase_build()
-    backward = phase_kernels()
-    ro = phase_rollout_kernel()
+    kernels = [phase_kernels(), phase_rollout_kernel(), phase_diff_kernel()]
     phase_small_reference()
     phase_golden()
     launches = phase_solve()
     phase_stages()
-    for entry in (backward, ro):
+    for entry in kernels:
         entry["launches_by_batch"] = {str(b): n[entry["name"]] for b, n in launches.items()}
         entry["launches"] = entry["launches_by_batch"][str(BATCHES[-1])]
     print(smi, flush=True)
-    emit({"kernels": [backward, ro]})
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -138,9 +138,52 @@ FFMPC_HD Dual<T> operator*(T a, Dual<T> b) { return {a * b.v, a * b.d}; }
 template <typename T>
 FFMPC_HD Dual<T> operator*(Dual<T> a, T b) { return {a.v * b, a.d * b}; }
 template <typename T>
+FFMPC_HD Dual<T> operator+(Dual<T> a, T b) { return {a.v + b, a.d}; }
+template <typename T>
+FFMPC_HD Dual<T> operator+(T a, Dual<T> b) { return {a + b.v, b.d}; }
+template <typename T>
+FFMPC_HD Dual<T> operator-(Dual<T> a, T b) { return {a.v - b, a.d}; }
+template <typename T>
+FFMPC_HD Dual<T> operator-(T a, Dual<T> b) { return {a - b.v, -b.d}; }
+// (a / b)' = (a' - (a / b) b') / b
+template <typename T>
+FFMPC_HD Dual<T> operator/(Dual<T> a, Dual<T> b) {
+  const T r = a.v / b.v;
+  return {r, (a.d - r * b.d) / b.v};
+}
+template <typename T>
+FFMPC_HD Dual<T> operator/(Dual<T> a, T b) { return {a.v / b, a.d / b}; }
+template <typename T>
 FFMPC_HD Dual<T> sin_(Dual<T> x) { return {sin_(x.v), cos_(x.v) * x.d}; }
 template <typename T>
 FFMPC_HD Dual<T> cos_(Dual<T> x) { return {cos_(x.v), -(sin_(x.v) * x.d)}; }
+template <typename T>
+FFMPC_HD Dual<T> sqrt_(Dual<T> x) {
+  const T s = sqrt_(x.v);
+  return {s, x.d / (T(2) * s)};
+}
+// unbounded at x = +-1, as torch's: -x' / sqrt(1 - x^2)
+template <typename T>
+FFMPC_HD Dual<T> acos_(Dual<T> x) {
+  return {acos_(x.v), -(x.d / sqrt_(T(1) - x.v * x.v))};
+}
+// torch.clamp's tangent: passed where lo <= x <= hi (bounds included, NaN
+// not), zero elsewhere.
+template <typename T>
+FFMPC_HD Dual<T> clamp_nan(Dual<T> x, Dual<T> lo, Dual<T> hi) {
+  const bool pass = x.v >= lo.v && x.v <= hi.v;
+  return {clamp_nan<T>(x.v, lo.v, hi.v), pass ? x.d : T(0)};
+}
+
+// The primal scalar type of S (T for Dual<T>) and a value's primal part.
+template <typename S>
+struct PrimalOf { using type = S; };
+template <typename T>
+struct PrimalOf<Dual<T>> { using type = T; };
+FFMPC_HD float primal(float x) { return x; }
+FFMPC_HD double primal(double x) { return x; }
+template <typename T>
+FFMPC_HD T primal(Dual<T> x) { return x.v; }
 
 template <typename S>
 FFMPC_HD void cross3(const S (&a)[3], const S (&b)[3], S (&out)[3]) {
@@ -207,7 +250,8 @@ FFMPC_HD void joint_rot(const KnotConstants<T>& C, int i, S c, S s, S (&R)[3][3]
 }
 
 // Forward kinematics (kinematics.py::fk): world origins p and joint axes of
-// the seven link frames, the tool frame's rotation and position.  With
+// the seven link frames, the tool frame's rotation and position, and, where
+// R_last is given, the last link's world rotation.  With
 // WITH_MASS it also accumulates the joint-space inertia
 // (dynamics.py::mass_matrix_fk) link by link, while each link's rotation is
 // at hand:  M += m_i Jv_i^T Jv_i + Jw_i^T (R_i I_i R_i^T) Jw_i with
@@ -216,7 +260,8 @@ FFMPC_HD void joint_rot(const KnotConstants<T>& C, int i, S c, S s, S (&R)[3][3]
 template <typename S, typename T, bool WITH_MASS>
 FFMPC_HD void fk_chain(const KnotConstants<T>& C, const S (&cq)[kNQ],
                        const S (&sq)[kNQ], S (&p)[kNQ][3], S (&axis)[kNQ][3],
-                       S (&ee_R)[3][3], S (&ee_p)[3], S (&M)[kNQ][kNQ]) {
+                       S (&ee_R)[3][3], S (&ee_p)[3], S (&M)[kNQ][kNQ],
+                       S (*R_last)[3] = nullptr) {
   S Rw[3][3], pw[3];
   for (int r = 0; r < 3; ++r) {
     pw[r] = S(C.base_pos[r]);
@@ -266,6 +311,9 @@ FFMPC_HD void fk_chain(const KnotConstants<T>& C, const S (&cq)[kNQ],
                                dot3<S>(axis[j], IwAx[k]));
     }
   }
+  if (R_last)
+    for (int r = 0; r < 3; ++r)
+      for (int c = 0; c < 3; ++c) R_last[r][c] = Rw[r][c];
   for (int r = 0; r < 3; ++r) {
     for (int c = 0; c < 3; ++c)
       ee_R[r][c] = Rw[r][0] * C.ee_rot[0][c] + Rw[r][1] * C.ee_rot[1][c] +
@@ -280,11 +328,17 @@ FFMPC_HD void fk_chain(const KnotConstants<T>& C, const S (&cq)[kNQ],
     }
 }
 
-// Bias forces b(q, v) = rnea(q, v, 0): Coriolis, gravity and joint damping
-// (dynamics.py::rnea with gravity and joint terms, a = 0).
-template <typename S, typename T>
-FFMPC_HD void bias_forces(const KnotConstants<T>& C, const S (&cq)[kNQ],
-                          const S (&sq)[kNQ], const S (&v)[kNQ], S (&tau)[kNQ]) {
+// Recursive Newton-Euler (dynamics.py::rnea with gravity and joint terms,
+// scalar_chain.py::chain_rnea): the joint torques that realize acceleration
+// a at (q, v), armature a + damping v included.  With EE_ACC it also gives
+// the tool's classical linear acceleration in the world frame without
+// gravity, Jp a + dJp/dt v (the quantity the contact row differentiates),
+// from the last link's world rotation R_last: gravity enters the linear
+// recursion only through rotations, so it is removed at the end.
+template <typename S, typename T, bool EE_ACC>
+FFMPC_HD void rnea(const KnotConstants<T>& C, const S (&cq)[kNQ], const S (&sq)[kNQ],
+                   const S (&v)[kNQ], const T (&a)[kNQ], S (&tau)[kNQ],
+                   const S (*R_last)[3] = nullptr, S* ee_acc = nullptr) {
   S w[3] = {S(0), S(0), S(0)}, wd[3] = {S(0), S(0), S(0)}, ac[3];
   // base linear acceleration (gravity trick): base_rot^T (-gravity)
   for (int r = 0; r < 3; ++r)
@@ -309,10 +363,10 @@ FFMPC_HD void bias_forces(const KnotConstants<T>& C, const S (&cq)[kNQ],
     for (int r = 0; r < 3; ++r) arg[r] = ac[r] + t0[r] + t2[r];
     for (int r = 0; r < 3; ++r)
       ac[r] = R[0][r] * arg[0] + R[1][r] * arg[1] + R[2][r] * arg[2];
-    // wd <- R^T wd + w_p x (qd ez) (+ qdd ez, zero here); w <- w_p + qd ez
+    // wd <- R^T wd + w_p x (qd ez) + qdd ez; w <- w_p + qd ez
     wd[0] = Rt_wd[0] + w_p[1] * qd;
     wd[1] = Rt_wd[1] - w_p[0] * qd;
-    wd[2] = Rt_wd[2];
+    wd[2] = Rt_wd[2] + a[i];
     w[0] = w_p[0];
     w[1] = w_p[1];
     w[2] = w_p[2] + qd;
@@ -321,6 +375,16 @@ FFMPC_HD void bias_forces(const KnotConstants<T>& C, const S (&cq)[kNQ],
       wds[i][r] = wd[r];
       acs[i][r] = ac[r];
     }
+  }
+  if constexpr (EE_ACC) {
+    S t[3] = {S(C.ee_pos[0]), S(C.ee_pos[1]), S(C.ee_pos[2])}, t0[3], t1[3], t2[3], a_ee[3];
+    cross3<S>(wd, t, t0);
+    cross3<S>(w, t, t1);
+    cross3<S>(w, t1, t2);
+    for (int r = 0; r < 3; ++r) a_ee[r] = ac[r] + t0[r] + t2[r];
+    for (int r = 0; r < 3; ++r)
+      ee_acc[r] = R_last[r][0] * a_ee[0] + R_last[r][1] * a_ee[1] +
+                  R_last[r][2] * a_ee[2] + C.gravity[r];
   }
   S f[3] = {S(0), S(0), S(0)}, n[3] = {S(0), S(0), S(0)};
   for (int i = kNQ - 1; i >= 0; --i) {
@@ -346,7 +410,7 @@ FFMPC_HD void bias_forces(const KnotConstants<T>& C, const S (&cq)[kNQ],
       f_i[r] = F[r] + f[r];
       n_i[r] = (Nn[r] + t3[r]) + t4[r] + n[r];
     }
-    tau[i] = n_i[2] + C.armature[i] * S(0) + C.damping[i] * v[i];
+    tau[i] = n_i[2] + C.armature[i] * a[i] + C.damping[i] * v[i];
     if (i > 0) {
       S R[3][3];
       joint_rot<S, T>(C, i, cq[i], sq[i], R);
@@ -365,16 +429,27 @@ FFMPC_HD void bias_forces(const KnotConstants<T>& C, const S (&cq)[kNQ],
   }
 }
 
-// SO(3) log map (core/spatial.py::log3), small-angle branch included.
+// Bias forces b(q, v) = rnea(q, v, 0): Coriolis, gravity and joint damping.
+template <typename S, typename T>
+FFMPC_HD void bias_forces(const KnotConstants<T>& C, const S (&cq)[kNQ],
+                          const S (&sq)[kNQ], const S (&v)[kNQ], S (&tau)[kNQ]) {
+  const T zero[kNQ] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
+  rnea<S, T, false>(C, cq, sq, v, zero, tau);
+}
+
+// SO(3) log map (core/spatial.py::log3), small-angle branch included.  On
+// Dual<T> the branch is taken on the primal test, as torch.where does, and
+// the tangent goes through the clamp as torch.clamp's does.
 template <typename S>
 FFMPC_HD void log3(const S (&R)[3][3], S (&out)[3]) {
+  using P = typename PrimalOf<S>::type;
   const S tr = R[0][0] + R[1][1] + R[2][2];
-  const S c = clamp_nan<S>((tr - S(1)) * S(0.5), S(-1), S(1));
+  const S c = clamp_nan(S((tr - S(1)) * S(0.5)), S(-1), S(1));
   const S theta = acos_(c);
   const S w0 = S(0.5) * (R[2][1] - R[1][2]);
   const S w1 = S(0.5) * (R[0][2] - R[2][0]);
   const S w2 = S(0.5) * (R[1][0] - R[0][1]);
-  const bool small = theta < S(1e-5);
+  const bool small = primal(theta) < P(1e-5);
   const S factor = small ? S(1) + theta * theta / S(6) : theta / sin_(theta);
   out[0] = w0 * factor;
   out[1] = w1 * factor;
@@ -385,13 +460,19 @@ FFMPC_HD void log3(const S (&R)[3][3], S (&out)[3]) {
 // cost assembly (ocp/action.py::_assemble_cost, ocp/activations.py::value)
 // ---------------------------------------------------------------------------
 
-// cost += scale * activation(r) for one slot, skipped when the slot is absent
-// or (at the terminal knot) not a terminal term.
+// A slot counts unless it is absent or, at the terminal knot, not a
+// terminal term.
+template <typename T>
+FFMPC_HD bool slot_on(const KnotConstants<T>& C, int slot, bool terminal) {
+  return C.slot_scale[slot] != T(0) && !(terminal && C.slot_terminal[slot] == T(0));
+}
+
+// cost += scale * activation(r) for one slot that counts.
 template <typename T, int NR>
 FFMPC_HD void add_term(const KnotConstants<T>& C, int slot, int row0,
                        bool terminal, const T (&r)[NR], T& cost) {
+  if (!slot_on(C, slot, terminal)) return;
   const T s = C.slot_scale[slot];
-  if (s == T(0) || (terminal && C.slot_terminal[slot] == T(0))) return;
   T sum = T(0);
   if (C.slot_barrier[slot] != T(0)) {
     for (int i = 0; i < NR; ++i) {
@@ -673,6 +754,524 @@ FFMPC_HD void rollout_one(const KnotConstants<T>& C, const RolloutArgs<T>& a,
   RefView<T> refT{a.ref_T, (size_t)b};
   const T cost_T = knot_calc<T, SURFACE>(C, refT, x, w0, true, ydummy);
   a.cost_try[(size_t)b * A + ai] = run_cost + cost_T;
+}
+
+// ---------------------------------------------------------------------------
+// the knot's derivatives (ocp/action.py diff / term_diff)
+// ---------------------------------------------------------------------------
+
+// A loop the compiler must not unroll: its body (a dual-number pass through
+// the chain) is emitted once.
+#if defined(__CUDACC__)
+#define FFMPC_NO_UNROLL _Pragma("unroll 1")
+#else
+#define FFMPC_NO_UNROLL
+#endif
+
+// A function kept out of line on the device.  knot_diff_one is: inlined into
+// its kernel, nvcc 12.8 at -O1 to -O3 computed wrong derivative columns on
+// the card (right with -G and in host builds, the same wrong numbers with
+// every loop unrolled); out of line it is right and as fast (PERF.md).
+#if defined(__CUDACC__)
+#define FFMPC_HD_OUTLINED __host__ __device__ __noinline__
+#else
+#define FFMPC_HD_OUTLINED inline
+#endif
+
+// One residual row's activation gradient and diagonal Hessian times the
+// term's scale (ocp/activations.py grad / hess_diag), added to g and h.
+// Returns false, adding nothing, for a row without weight or finite bound:
+// such a row never multiplies its Jacobian row (0 * inf would be NaN).  A NaN
+// residual gives g NaN and h 0, as |NaN| > 0 is false in the plain version.
+template <typename T>
+FFMPC_HD bool act_grad_hess(const KnotConstants<T>& C, int slot, int row, T r, T& g,
+                            T& h) {
+  const T s = C.slot_scale[slot];
+  if (C.slot_barrier[slot] != T(0)) {
+    const T lb = C.row_lb[row], ub = C.row_ub[row];
+    const bool has_ub = ub < T(kBig), has_lb = lb > T(-kBig);
+    if (!has_ub && !has_lb) return false;
+    T o = T(0);
+    if (has_ub) {
+      const T d = r - ub;
+      o = (d < T(0)) ? T(0) : d;
+    }
+    if (has_lb) {
+      const T d = r - lb;
+      o = o + ((d > T(0)) ? T(0) : d);
+    }
+    g = g + s * o;
+    h = h + ((o > T(0) || o < T(0)) ? s : T(0));
+    return true;
+  }
+  const T wr = C.row_w[row];
+  if (wr == T(0)) return false;
+  g = g + s * (wr * r);
+  h = h + s * wr;
+  return true;
+}
+
+// A term whose Jacobian is the identity on rows OFF.. of g / h (posture,
+// v_damp, q_soft_limits, tau_reg, tau_soft_limits, y_reg on y; w_reg, w_soft
+// on w): its cost, gradient and diagonal Hessian.
+template <int OFF, typename T, int NR, int NG>
+FFMPC_HD void eye_term(const KnotConstants<T>& C, int slot, int row0, bool terminal,
+                       const T (&r)[NR], T (&g)[NG], T (&h)[NG], T& cost) {
+  static_assert(OFF + NR <= NG, "rows out of range");
+  if (!slot_on(C, slot, terminal)) return;
+  add_term<T, NR>(C, slot, row0, terminal, r, cost);
+  for (int i = 0; i < NR; ++i) act_grad_hess(C, slot, row0 + i, r[i], g[OFF + i], h[OFF + i]);
+}
+
+// A term riding a shared Jacobian group's rows (ocp/channel_diff.py fold):
+// its cost, and its gradient and Hessian summed into the group's per-row
+// g / h; `live` marks the rows some term weights.
+template <typename T, int NR>
+FFMPC_HD void group_term(const KnotConstants<T>& C, int slot, int row0, bool terminal,
+                         const T (&r)[NR], T (&g)[NR], T (&h)[NR], bool (&live)[NR],
+                         T& cost) {
+  if (!slot_on(C, slot, terminal)) return;
+  add_term<T, NR>(C, slot, row0, terminal, r, cost);
+  for (int i = 0; i < NR; ++i)
+    if (act_grad_hess(C, slot, row0 + i, r[i], g[i], h[i])) live[i] = true;
+}
+
+// One column of the implicit-function derivatives (ocp/channel_diff.py):
+// from the tangents g1 of the RNEA rows and h2 of the contact row along one
+// direction, df = (Jc M^-1 g1 - h2) / S and da = -M^-1 g1 + M^-1 Jc^T df,
+// with S = LS^2 the damped Schur complement; free: da = -M^-1 g1, df = 0.
+template <typename T, bool SURFACE>
+FFMPC_HD void implicit_column(const T (&L)[kNQ][kNQ], const T (&Jc)[kNQ],
+                              const T (&Minv_Jt)[kNQ], T LS, const T (&g1)[kNQ], T h2,
+                              T (&da)[kNQ], T& df) {
+  T mg[kNQ];
+  chol_solve<T, kNQ>(L, g1, mg);
+  df = T(0);
+  if constexpr (SURFACE) {
+    T jm = T(0);
+    for (int j = 0; j < kNQ; ++j) jm = jm + Jc[j] * mg[j];
+    df = ((jm - h2) / LS) / LS;
+  }
+  for (int i = 0; i < kNQ; ++i) da[i] = SURFACE ? -mg[i] + Minv_Jt[i] * df : -mg[i];
+}
+
+// Where one knot's derivatives go: row-major blocks of the solver's
+// batch-leading arrays.  At the terminal knot only cost, Lx and Lxx exist.
+template <typename T>
+struct KnotDiffOut {
+  T* xnext;  // 21
+  T* cost;   // 1
+  T* Fx;     // 21 x 21
+  T* Fu;     // 21 x 7
+  T* Lx;     // 21
+  T* Lu;     // 7
+  T* Lxx;    // 21 x 21
+  T* Lxu;    // 21 x 7
+  T* Luu;    // 7 x 7
+};
+
+// One augmented knot's Gauss-Newton derivatives (ocp/action.py diff, or
+// term_diff where `terminal`: w = 0, only terms flagged terminal, no w terms;
+// the inner terms keep their dt scale).  The formulation of
+// ocp/channel_diff.py::make_channel_diff:
+//  - the primal chain once: FK with mass matrix, RNEA at a = 0 for the bias
+//    and the contact drift, Cholesky, the damped contact solve;
+//  - 7 q-directions and 7 v-directions, each ONE first-order Dual<T> pass:
+//    FK + RNEA at the fixed acceleration (and force) give
+//    g1 = rnea(q, v, acc) - Jc^T f and h2 = ee_acc_z + kp gap + kd Jc v,
+//    whose ee_acc_z = Jc a + gamma needs no nested tangent; the q-pass also
+//    carries the tool orientation error and velocity;
+//  - after each pass, its column of the implicit-function solves against
+//    the factored M and the Schur complement S = Jc M^-1 Jc^T + c:
+//    df/dx = (Jc M^-1 G1 - H2) / S, da/dx = -M^-1 G1 + M^-1 Jc^T df/dx
+//    (G1, H2: the passes' tangents of g1, h2, never stored whole); then
+//    df/dtau = -M^-1 Jc^T / S, da/dtau = M^-1 + M^-1 Jc^T df/dtau;
+//  - the semi-implicit Euler blocks lifted by the torque filter:
+//    Fy = [[Fx_in, Fu_in], [0, alpha I]], Fw = [[0], [beta I]];
+//  - Gauss-Newton assembly with the Jacobian groups shared by residuals that
+//    ride the same rows, over their live columns only: identity terms on the
+//    diagonal, orientation rows on q, frame-velocity rows on (q, v), position
+//    rows on q, the force row on all of y.  Lxu is zero: only w terms have a
+//    w-Jacobian, and none of them a y-Jacobian.
+// Fx, Fu, Lxx and Lxu are written to memory as each entry is final and never
+// held whole.
+template <typename T, bool SURFACE, typename Ref>
+FFMPC_HD_OUTLINED void knot_diff_one(const KnotConstants<T>& C, const Ref& ref, const T (&y)[kNY],
+                            const T (&w)[kNW], bool terminal, const KnotDiffOut<T>& out) {
+  using D = Dual<T>;
+  T q[kNQ], v[kNQ], tau[kNQ], cq[kNQ], sq[kNQ];
+  for (int i = 0; i < kNQ; ++i) {
+    q[i] = y[i];
+    v[i] = y[7 + i];
+    tau[i] = y[14 + i];
+    cq[i] = cos_(q[i]);
+    sq[i] = sin_(q[i]);
+  }
+
+  // ---- primal chain
+  T p[kNQ][3], axis[kNQ][3], ee_R[3][3], ee_p[3], M[kNQ][kNQ], R6[3][3];
+  fk_chain<T, T, true>(C, cq, sq, p, axis, ee_R, ee_p, M, R6);
+  T b[kNQ], gam[3];
+  {
+    const T zero[kNQ] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
+    rnea<T, T, SURFACE>(C, cq, sq, v, zero, b, R6, gam);
+  }
+  T Jp[3][kNQ];
+  for (int j = 0; j < kNQ; ++j) {
+    T r[3] = {ee_p[0] - p[j][0], ee_p[1] - p[j][1], ee_p[2] - p[j][2]};
+    T c[3];
+    cross3<T>(axis[j], r, c);
+    Jp[0][j] = c[0];
+    Jp[1][j] = c[1];
+    Jp[2][j] = c[2];
+  }
+  T L[kNQ][kNQ], Minv_tau[kNQ], acc[kNQ];
+  chol_factor<T, kNQ>(M, L);
+  {
+    T rhs[kNQ];
+    for (int i = 0; i < kNQ; ++i) rhs[i] = tau[i] - b[i];
+    chol_solve<T, kNQ>(L, rhs, Minv_tau);
+  }
+  T force = T(0), LS = T(1), gap = T(0), Minv_Jt[kNQ];
+  if constexpr (SURFACE) {
+    T Jc[kNQ];
+    for (int j = 0; j < kNQ; ++j) Jc[j] = Jp[2][j];
+    chol_solve<T, kNQ>(L, Jc, Minv_Jt);
+    T vel_c = T(0), S_ = T(0), JMt = T(0);
+    for (int j = 0; j < kNQ; ++j) {
+      vel_c = vel_c + Jc[j] * v[j];
+      S_ = S_ + Jc[j] * Minv_Jt[j];
+      JMt = JMt + Jc[j] * Minv_tau[j];
+    }
+    S_ = S_ + C.damping_c;
+    gap = ee_p[2] - (ref.at(2) - C.z_press);
+    const T a_des = (-gam[2] - C.kp * gap) - C.kd * vel_c;
+    LS = S_ / sqrt_(S_);  // 1x1 Cholesky factor, as chol_factor gives it
+    force = ((a_des - JMt) / LS) / LS;
+    for (int i = 0; i < kNQ; ++i) acc[i] = Minv_tau[i] + Minv_Jt[i] * force;
+  } else {
+    for (int i = 0; i < kNQ; ++i) {
+      acc[i] = Minv_tau[i];
+      Minv_Jt[i] = T(0);
+    }
+  }
+  if (!terminal)
+    for (int i = 0; i < kNQ; ++i) {
+      const T vn = v[i] + C.dt * acc[i];
+      out.xnext[7 + i] = vn;
+      out.xnext[i] = q[i] + C.dt * vn;
+      out.xnext[14 + i] = C.lpf_alpha * tau[i] + C.lpf_beta * w[i];
+    }
+  T vel6[6];
+  for (int a = 0; a < 3; ++a) {
+    T lin = T(0), ang = T(0);
+    for (int j = 0; j < kNQ; ++j) {
+      lin = lin + Jp[a][j] * v[j];
+      ang = ang + axis[j][a] * v[j];
+    }
+    vel6[a] = lin;
+    vel6[3 + a] = ang;
+  }
+  T ori[3];
+  {
+    T Rrel[3][3];
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j)
+        Rrel[i][j] = ref.at(27 + 0 * 3 + i) * ee_R[0][j] + ref.at(27 + 1 * 3 + i) * ee_R[1][j] +
+                     ref.at(27 + 2 * 3 + i) * ee_R[2][j];
+    log3<T>(Rrel, ori);
+  }
+
+  // ---- tangent passes, each one direction of (q, v), each followed at once
+  // by its implicit-function column: da/dx, df/dx.  The q-pass also gives
+  // d ori / dq and d vel6 / dq.
+  T da_dx[kNQ][14], df_dx[14], dori[3][kNQ], dvel[6][kNQ];
+  FFMPC_NO_UNROLL
+  for (int d = 0; d < kNQ; ++d) {
+    D cqd[kNQ], sqd[kNQ], vd[kNQ];
+    for (int i = 0; i < kNQ; ++i) {
+      const D qi(q[i], i == d ? T(1) : T(0));
+      cqd[i] = cos_(qi);
+      sqd[i] = sin_(qi);
+      vd[i] = D(v[i]);
+    }
+    D pd[kNQ][3], axd[kNQ][3], eeRd[3][3], eepd[3], Md[kNQ][kNQ], R6d[3][3];
+    fk_chain<D, T, false>(C, cqd, sqd, pd, axd, eeRd, eepd, Md, R6d);
+    D taur[kNQ], eacc[3];
+    rnea<D, T, SURFACE>(C, cqd, sqd, vd, acc, taur, R6d, eacc);
+    D Jpd[3][kNQ];
+    for (int j = 0; j < kNQ; ++j) {
+      D r[3] = {eepd[0] - pd[j][0], eepd[1] - pd[j][1], eepd[2] - pd[j][2]};
+      D c[3];
+      cross3<D>(axd[j], r, c);
+      Jpd[0][j] = c[0];
+      Jpd[1][j] = c[1];
+      Jpd[2][j] = c[2];
+    }
+    T g1[kNQ], h2 = T(0), da[kNQ], dfx;
+    for (int i = 0; i < kNQ; ++i)
+      g1[i] = SURFACE ? taur[i].d - Jpd[2][i].d * force : taur[i].d;
+    if constexpr (SURFACE) {
+      T jv = T(0);
+      for (int j = 0; j < kNQ; ++j) jv = jv + Jpd[2][j].d * v[j];
+      h2 = (eacc[2].d + C.kp * eepd[2].d) + C.kd * jv;
+    }
+    implicit_column<T, SURFACE>(L, Jp[2], Minv_Jt, LS, g1, h2, da, dfx);
+    for (int i = 0; i < kNQ; ++i) da_dx[i][d] = da[i];
+    df_dx[d] = dfx;
+    for (int a = 0; a < 3; ++a) {
+      T lin = T(0), ang = T(0);
+      for (int j = 0; j < kNQ; ++j) {
+        lin = lin + Jpd[a][j].d * v[j];
+        ang = ang + axd[j][a].d * v[j];
+      }
+      dvel[a][d] = lin;
+      dvel[3 + a][d] = ang;
+    }
+    D Rrel[3][3], od[3];
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j)
+        Rrel[i][j] = ref.at(27 + 0 * 3 + i) * eeRd[0][j] + ref.at(27 + 1 * 3 + i) * eeRd[1][j] +
+                     ref.at(27 + 2 * 3 + i) * eeRd[2][j];
+    log3<D>(Rrel, od);
+    for (int r = 0; r < 3; ++r) dori[r][d] = od[r].d;
+  }
+  FFMPC_NO_UNROLL
+  for (int e = 0; e < kNQ; ++e) {
+    D cqd[kNQ], sqd[kNQ], vd[kNQ], R6d[3][3];
+    T jce = T(0);
+    for (int i = 0; i < kNQ; ++i) {
+      cqd[i] = D(cq[i]);
+      sqd[i] = D(sq[i]);
+      vd[i] = D(v[i], i == e ? T(1) : T(0));
+      if (i == e) jce = Jp[2][i];
+    }
+    for (int r = 0; r < 3; ++r)
+      for (int c = 0; c < 3; ++c) R6d[r][c] = D(R6[r][c]);
+    D taur[kNQ], eacc[3];
+    rnea<D, T, SURFACE>(C, cqd, sqd, vd, acc, taur, R6d, eacc);
+    T g1[kNQ], h2 = T(0), da[kNQ], dfx;
+    for (int i = 0; i < kNQ; ++i) g1[i] = taur[i].d;
+    if constexpr (SURFACE) h2 = eacc[2].d + C.kd * jce;
+    implicit_column<T, SURFACE>(L, Jp[2], Minv_Jt, LS, g1, h2, da, dfx);
+    for (int i = 0; i < kNQ; ++i) da_dx[i][7 + e] = da[i];
+    df_dx[7 + e] = dfx;
+  }
+
+  // ---- the control columns: da/dtau, df/dtau (seven small solves, unrolled)
+  T da_du[kNQ][kNQ], df_du[kNQ];
+  for (int j = 0; j < kNQ; ++j) {
+    T ej[kNQ], mj[kNQ], dfu = T(0);
+    for (int i = 0; i < kNQ; ++i) ej[i] = (i == j) ? T(1) : T(0);
+    chol_solve<T, kNQ>(L, ej, mj);
+    if constexpr (SURFACE) {
+      T mjt = T(0);
+      for (int i = 0; i < kNQ; ++i)
+        if (i == j) mjt = Minv_Jt[i];
+      dfu = -((mjt / LS) / LS);
+    }
+    df_du[j] = dfu;
+    for (int i = 0; i < kNQ; ++i) da_du[i][j] = SURFACE ? mj[i] + Minv_Jt[i] * dfu : mj[i];
+  }
+
+  // ---- dynamics Jacobians (running knots)
+  if (!terminal) {
+    const T dt = C.dt, dt2 = C.dt * C.dt;
+    for (int i = 0; i < kNY; ++i)
+      for (int c = 0; c < kNY; ++c) {
+        T val;
+        if (i < 7 && c < 14)
+          val = ((i == c) ? T(1) : T(0)) + ((c == i + 7) ? dt : T(0)) + dt2 * da_dx[i][c];
+        else if (i < 14 && c < 14)
+          val = ((i == c) ? T(1) : T(0)) + dt * da_dx[i - 7][c];
+        else if (i < 7)
+          val = dt2 * da_du[i][c - 14];
+        else if (i < 14)
+          val = dt * da_du[i - 7][c - 14];
+        else
+          val = (i == c) ? C.lpf_alpha : T(0);
+        out.Fx[i * kNY + c] = val;
+      }
+    for (int i = 0; i < kNY; ++i)
+      for (int j = 0; j < kNW; ++j)
+        out.Fu[i * kNW + j] = (i - 14 == j) ? C.lpf_beta : T(0);
+  }
+
+  // ---- residuals, costs and Gauss-Newton assembly, in the spec's order
+  T cost = T(0), gy[kNY], hy[kNY];
+  for (int i = 0; i < kNY; ++i) gy[i] = hy[i] = T(0);
+  T g_ori[3] = {T(0), T(0), T(0)}, h_ori[3] = {T(0), T(0), T(0)};
+  T g_vel[6], h_vel[6], g_pos[3] = {T(0), T(0), T(0)}, h_pos[3] = {T(0), T(0), T(0)};
+  T g_f[1] = {T(0)}, h_f[1] = {T(0)};
+  bool l_ori[3] = {false, false, false}, l_vel[6], l_pos[3] = {false, false, false};
+  bool l_f[1] = {false};
+  for (int i = 0; i < 6; ++i) {
+    g_vel[i] = h_vel[i] = T(0);
+    l_vel[i] = false;
+  }
+  {
+    T r[14];
+    for (int i = 0; i < 14; ++i) r[i] = y[i] - ref.at(6 + i);
+    eye_term<0>(C, kPosture, kRowPosture, terminal, r, gy, hy, cost);
+  }
+  {
+    T r[14];
+    for (int i = 0; i < 14; ++i) r[i] = y[i];
+    eye_term<0>(C, kVDamp, kRowVDamp, terminal, r, gy, hy, cost);
+  }
+  {
+    T r[14];
+    for (int i = 0; i < 14; ++i) r[i] = y[i] - C.q_soft_ref[i];
+    eye_term<0>(C, kQSoft, kRowQSoft, terminal, r, gy, hy, cost);
+  }
+  group_term<T, 3>(C, kEeOri, kRowEeOri, terminal, ori, g_ori, h_ori, l_ori, cost);
+  group_term<T, 6>(C, kWDamp, kRowWDamp, terminal, vel6, g_vel, h_vel, l_vel, cost);
+  {
+    T r[7];
+    for (int i = 0; i < 7; ++i) r[i] = tau[i] - ref.at(20 + i);
+    eye_term<14>(C, kTauReg, kRowTauReg, terminal, r, gy, hy, cost);
+    eye_term<14>(C, kTauSoft, kRowTauSoft, terminal, tau, gy, hy, cost);
+  }
+  if constexpr (!SURFACE) {
+    T r[3] = {ee_p[0] - ref.at(0), ee_p[1] - ref.at(1), ee_p[2] - ref.at(2)};
+    group_term<T, 3>(C, kEePos, kRowEePos, terminal, r, g_pos, h_pos, l_pos, cost);
+  } else {
+    {
+      T r[3] = {ee_p[0] - ref.at(0), ee_p[1] - ref.at(1), ee_p[2] - ref.at(2)};
+      group_term<T, 3>(C, kEeXy, kRowEeXy, terminal, r, g_pos, h_pos, l_pos, cost);
+    }
+    {
+      T r[6] = {vel6[0] - ref.at(3), vel6[1] - ref.at(4), vel6[2] - T(0),
+                vel6[3] - T(0), vel6[4] - T(0), vel6[5] - T(0)};
+      group_term<T, 6>(C, kEeVxy, kRowEeVxy, terminal, r, g_vel, h_vel, l_vel, cost);
+    }
+    {
+      T r[3] = {ee_p[0] - ref.at(0), ee_p[1] - ref.at(1), ee_p[2] - (ref.at(2) - C.z_press)};
+      group_term<T, 3>(C, kPlaneZ, kRowPlaneZ, terminal, r, g_pos, h_pos, l_pos, cost);
+    }
+    group_term<T, 6>(C, kVzDamp, kRowVzDamp, terminal, vel6, g_vel, h_vel, l_vel, cost);
+    {
+      T r[1] = {force};
+      group_term<T, 1>(C, kUnilateral, kRowUnilateral, terminal, r, g_f, h_f, l_f, cost);
+    }
+    {
+      T r[1] = {force - C.fn_des};
+      group_term<T, 1>(C, kFnTrack, kRowFnTrack, terminal, r, g_f, h_f, l_f, cost);
+    }
+  }
+  {
+    T r[kNY];
+    for (int i = 0; i < kNY; ++i) r[i] = y[i] - ref.at(36 + i);
+    eye_term<0>(C, kYReg, kRowYReg, terminal, r, gy, hy, cost);
+  }
+  T gu[kNW], hu[kNW];
+  for (int j = 0; j < kNW; ++j) gu[j] = hu[j] = T(0);
+  if (!terminal) {
+    eye_term<0>(C, kWReg, kRowWReg, false, w, gu, hu, cost);
+    eye_term<0>(C, kWSoft, kRowWSoft, false, w, gu, hu, cost);
+  }
+  *out.cost = cost;
+
+  // Group Jacobians over their live columns; a row no term weights is
+  // zeroed, so it adds exactly nothing.
+  T Jori[3][kNQ], Jvel[6][14], Jpos[3][kNQ], Jf[kNY];
+  for (int r = 0; r < 3; ++r)
+    for (int c = 0; c < kNQ; ++c) {
+      Jori[r][c] = l_ori[r] ? dori[r][c] : T(0);
+      Jpos[r][c] = l_pos[r] ? Jp[r][c] : T(0);
+    }
+  for (int r = 0; r < 6; ++r)
+    for (int c = 0; c < 14; ++c) {
+      const T jv = c < 7 ? dvel[r][c] : (r < 3 ? Jp[r][c - 7] : axis[c - 7][r - 3]);
+      Jvel[r][c] = l_vel[r] ? jv : T(0);
+    }
+  for (int c = 0; c < kNY; ++c)
+    Jf[c] = (SURFACE && l_f[0]) ? (c < 14 ? df_dx[c] : df_du[c - 14]) : T(0);
+
+  for (int c = 0; c < kNY; ++c) {
+    T s = gy[c];
+    if (c < 7)
+      for (int r = 0; r < 3; ++r) s = s + (Jori[r][c] * g_ori[r] + Jpos[r][c] * g_pos[r]);
+    if (c < 14)
+      for (int r = 0; r < 6; ++r) s = s + Jvel[r][c] * g_vel[r];
+    if constexpr (SURFACE) s = s + Jf[c] * g_f[0];
+    out.Lx[c] = s;
+  }
+  for (int a = 0; a < kNY; ++a)
+    for (int c = a; c < kNY; ++c) {
+      T s = (a == c) ? hy[a] : T(0);
+      if (c < 7)
+        for (int r = 0; r < 3; ++r)
+          s = s + (Jori[r][a] * (h_ori[r] * Jori[r][c]) + Jpos[r][a] * (h_pos[r] * Jpos[r][c]));
+      if (c < 14)
+        for (int r = 0; r < 6; ++r) s = s + Jvel[r][a] * (h_vel[r] * Jvel[r][c]);
+      if constexpr (SURFACE) s = s + Jf[a] * (h_f[0] * Jf[c]);
+      out.Lxx[a * kNY + c] = s;
+      out.Lxx[c * kNY + a] = s;
+    }
+  if (!terminal) {
+    for (int j = 0; j < kNW; ++j) {
+      out.Lu[j] = gu[j];
+      for (int k = 0; k < kNW; ++k) out.Luu[j * kNW + k] = (j == k) ? hu[j] : T(0);
+    }
+    for (int i = 0; i < kNY * kNW; ++i) out.Lxu[i] = T(0);
+  }
+}
+
+// Batch-leading arrays of the derivative pass exactly as the solver holds
+// them (all contiguous): states (B, N+1, 21), controls (B, N, 7), references;
+// running outputs (B, N, ...) and terminal outputs (B, ...).
+template <typename T>
+struct DiffArgs {
+  const T* xs;
+  const T* us;
+  const T* ref[6];    // refs_run fields (B, N, k), ProblemRefs order
+  const T* ref_T[6];  // ref_T fields (B, k)
+  T *xnext, *cost, *Fx, *Fu, *Lx, *Lu, *Lxx, *Lxu, *Luu;
+  T *cost_T, *LxT, *LxxT;
+  int B, N;
+};
+
+// outs: xnext, cost, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, cost_T, LxT, LxxT.
+template <typename T>
+FFMPC_HD DiffArgs<T> diff_args(const void* xs, const void* us, const void* const* refs,
+                               const void* const* refs_T, void* const* outs, int B, int N) {
+  DiffArgs<T> a;
+  a.xs = (const T*)xs;
+  a.us = (const T*)us;
+  for (int f = 0; f < 6; ++f) {
+    a.ref[f] = (const T*)refs[f];
+    a.ref_T[f] = (const T*)refs_T[f];
+  }
+  T** o[12] = {&a.xnext, &a.cost, &a.Fx, &a.Fu, &a.Lx, &a.Lu,
+               &a.Lxx, &a.Lxu, &a.Luu, &a.cost_T, &a.LxT, &a.LxxT};
+  for (int k = 0; k < 12; ++k) *o[k] = (T*)outs[k];
+  a.B = B;
+  a.N = N;
+  return a;
+}
+
+// Knot t of problem b: running for t < N, terminal for t == N.
+template <typename T, bool SURFACE>
+FFMPC_HD void diff_knot(const KnotConstants<T>& C, const DiffArgs<T>& a, int b, int t) {
+  const int N = a.N;
+  const bool terminal = t == N;
+  const T* ys = a.xs + ((size_t)b * (N + 1) + t) * kNY;
+  T y[kNY], w[kNW];
+  for (int i = 0; i < kNY; ++i) y[i] = ys[i];
+  const size_t k = (size_t)b * N + t;  // running knot index
+  for (int j = 0; j < kNW; ++j) w[j] = terminal ? T(0) : a.us[k * kNW + j];
+  KnotDiffOut<T> o;
+  if (terminal) {
+    o = {nullptr, a.cost_T + b, nullptr, nullptr, a.LxT + (size_t)b * kNY,
+         nullptr, a.LxxT + (size_t)b * kNY * kNY, nullptr, nullptr};
+  } else {
+    o = {a.xnext + k * kNY, a.cost + k, a.Fx + k * kNY * kNY, a.Fu + k * kNY * kNW,
+         a.Lx + k * kNY, a.Lu + k * kNW, a.Lxx + k * kNY * kNY, a.Lxu + k * kNY * kNW,
+         a.Luu + k * kNW * kNW};
+  }
+  const RefView<T> ref{terminal ? a.ref_T : a.ref, terminal ? (size_t)b : k};
+  knot_diff_one<T, SURFACE>(C, ref, y, w, terminal, o);
 }
 
 }  // namespace ffmpc

@@ -33,6 +33,7 @@ import torch
 from ..ocp.action import KnotModel
 from ..ocp.weights import ProblemRefs
 from .backward_cuda import backward_box, backward_box_reference
+from .diff_cuda import KnotDerivs, diff_all, diff_reference
 from .rollout_cuda import pack_knot_consts, rollout, rollout_reference
 
 KGAIN_REG = 1e-12
@@ -66,6 +67,10 @@ class FDDPSettings:
     # kernel for tensors on the card); "plain": ``rollout_reference``, the
     # Python loop over knots of batched knot calcs.
     rollout_mode: str = "kernel"
+    # "kernel": the derivative pass goes through ``diff_all`` (the CUDA
+    # kernel for tensors on the card); "plain": ``diff_reference``, the
+    # knot's batched diff and term_diff.
+    diff_mode: str = "kernel"
 
 
 class FDDPResult(NamedTuple):
@@ -175,23 +180,25 @@ class BackwardInputs(NamedTuple):
     feasible: torch.Tensor   # (B,) bool
 
 
-def backward_inputs(knot: KnotModel, refs_run: ProblemRefs, ref_T: ProblemRefs,
-                    x0, xs, us, feasible) -> BackwardInputs:
-    """Derivative pass of one iteration: knot and terminal derivatives, gaps,
-    sticky feasibility, and the backward sweep's inputs with the gap rows
-    scaled by the infeasibility weight and bounds relative to ``us``."""
-    dtype, device = xs.dtype, xs.device
-    derivs = knot.diff(refs_run, xs[:, :-1], us)
-    cost_T, LxT, LxxT = knot.term_diff(ref_T, xs[:, -1])
-    cost_cur = torch.sum(derivs.cost, dim=1) + cost_T
+def control_bounds(knot: KnotModel, dtype, device):
+    """The knot's torque bounds (u_lb, u_ub) as (nu,) tensors."""
+    return (torch.tensor(knot.u_lb, dtype=dtype, device=device),
+            torch.tensor(knot.u_ub, dtype=dtype, device=device))
+
+
+def backward_inputs(d: KnotDerivs, x0, xs, us, feasible, u_lb, u_ub) -> BackwardInputs:
+    """What one iteration builds from its derivative pass ``d``
+    (``diff_all`` / ``diff_reference`` of ``xs``, ``us``): the current cost,
+    gaps, sticky feasibility, and the backward sweep's inputs with the gap
+    rows scaled by the infeasibility weight and bounds relative to ``us``."""
+    derivs = d.run
+    cost_cur = torch.sum(derivs.cost, dim=1) + d.cost_T
     fs = _compute_gaps(x0, xs, derivs.xnext)
     gap_norm = fs.abs().amax(dim=(1, 2))
     feasible = feasible | (gap_norm < 1e-9)
-    gapw = torch.where(feasible, 0.0, 1.0).to(dtype)
-    u_lb = torch.tensor(knot.u_lb, dtype=dtype, device=device)
-    u_ub = torch.tensor(knot.u_ub, dtype=dtype, device=device)
+    gapw = torch.where(feasible, 0.0, 1.0).to(xs.dtype)
     args = (derivs.Fx, derivs.Fu, derivs.Lx, derivs.Lu, derivs.Lxx, derivs.Lxu,
-            derivs.Luu, gapw[:, None, None] * fs, LxT, LxxT, u_lb - us, u_ub - us)
+            derivs.Luu, gapw[:, None, None] * fs, d.LxT, d.LxxT, u_lb - us, u_ub - us)
     return BackwardInputs(tuple(a.contiguous() for a in args), fs, cost_cur,
                           feasible)
 
@@ -211,18 +218,27 @@ def solve(knot: KnotModel, refs_run: ProblemRefs, ref_T: ProblemRefs, x0,
         raise ValueError(f"unknown backward_mode {S.backward_mode!r}")
     if S.rollout_mode not in ("kernel", "plain"):
         raise ValueError(f"unknown rollout_mode {S.rollout_mode!r}")
+    if S.diff_mode not in ("kernel", "plain"):
+        raise ValueError(f"unknown diff_mode {S.diff_mode!r}")
     nx, nu = knot.nx, knot.nu
     B, N = us_init.shape[0], us_init.shape[1]
     dtype, device = xs_init.dtype, xs_init.device
     kw = dict(dtype=dtype, device=device)
 
     bw_fn = backward_box if S.backward_mode == "kernel" else backward_box_reference
-    # the rollout kernel reads its inputs as contiguous arrays
-    x0 = x0.contiguous()
+    # the kernels read their inputs as contiguous arrays
+    x0, xs_init, us_init = x0.contiguous(), xs_init.contiguous(), us_init.contiguous()
     refs_run = ProblemRefs(*(a.contiguous() for a in refs_run))
     ref_T = ProblemRefs(*(a.contiguous() for a in ref_T))
-    if S.rollout_mode == "kernel":
+    if "kernel" in (S.rollout_mode, S.diff_mode):
         consts = pack_knot_consts(knot.model, knot.W, knot.surface, dtype)
+    u_lb, u_ub = control_bounds(knot, dtype, device)
+
+    # ---------------- derivative pass: running and terminal knots ---------
+    def derivatives(xs, us):
+        if S.diff_mode == "kernel":
+            return diff_all(knot, consts, refs_run, ref_T, xs, us)
+        return diff_reference(knot, refs_run, ref_T, xs, us)
 
     # ---------------- forward pass: all step lengths in one rollout -------
     def forward(xs, us, K, kff, fs, feasible):
@@ -234,7 +250,8 @@ def solve(knot: KnotModel, refs_run: ProblemRefs, ref_T: ProblemRefs, x0,
 
     # ---------------- one FDDP iteration (all problems) -------------------
     def iteration(c: _Carry) -> _Carry:
-        bi = backward_inputs(knot, refs_run, ref_T, x0, c.xs, c.us, c.feasible)
+        bi = backward_inputs(derivatives(c.xs, c.us), x0, c.xs, c.us, c.feasible,
+                             u_lb, u_ub)
         fs, cost_cur, feasible = bi.fs, bi.cost_cur, bi.feasible
 
         def bw(xreg, ureg):

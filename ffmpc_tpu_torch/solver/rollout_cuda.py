@@ -151,6 +151,24 @@ _REF_SHAPES = dict(p_ref=(3,), v_ref=(3,), x_reg_ref=(14,), tau_ref=(7,),
                    R_des=(3, 3), y_ref=(21,))
 
 
+def _same_kind(name, a, xs):
+    if a.dtype != xs.dtype or a.device != xs.device:
+        raise ValueError(f"{name}: dtype/device {a.dtype}/{a.device} differ "
+                         f"from xs's {xs.dtype}/{xs.device}")
+
+
+def check_refs(refs_run: ProblemRefs, ref_T: ProblemRefs, B: int, N: int, xs):
+    """Raise unless the references have leading dims (B, N) / (B,) and the
+    dtype and device of ``xs``."""
+    for f in ProblemRefs._fields:
+        for name, lead, ref in (("refs_run", (B, N), refs_run), ("ref_T", (B,), ref_T)):
+            a = getattr(ref, f)
+            _same_kind(f"{name}.{f}", a, xs)
+            if tuple(a.shape) != lead + _REF_SHAPES[f]:
+                raise ValueError(f"{f}: shape {tuple(a.shape)}, expected "
+                                 f"{lead + _REF_SHAPES[f]}")
+
+
 def _check_args(x0, xs, us, K, kff, fs, feasible, refs_run, ref_T):
     if xs.dim() != 3 or us.dim() != 3:
         raise ValueError("xs must be (B,N+1,nx) and us (B,N,nu)")
@@ -161,18 +179,8 @@ def _check_args(x0, xs, us, K, kff, fs, feasible, refs_run, ref_T):
     for name, a in named.items():
         if tuple(a.shape) != want[name]:
             raise ValueError(f"{name}: shape {tuple(a.shape)}, expected {want[name]}")
-    for name, a in [*named.items(),
-                    *((f"refs_run.{f}", getattr(refs_run, f)) for f in ProblemRefs._fields),
-                    *((f"ref_T.{f}", getattr(ref_T, f)) for f in ProblemRefs._fields)]:
-        if a.dtype != xs.dtype or a.device != xs.device:
-            raise ValueError(f"{name}: dtype/device {a.dtype}/{a.device} differ "
-                             f"from xs's {xs.dtype}/{xs.device}")
-    for f in ProblemRefs._fields:
-        for lead, ref in (((B, N), refs_run), ((B,), ref_T)):
-            a = getattr(ref, f)
-            if tuple(a.shape) != lead + _REF_SHAPES[f]:
-                raise ValueError(f"{f}: shape {tuple(a.shape)}, expected "
-                                 f"{lead + _REF_SHAPES[f]}")
+        _same_kind(name, a, xs)
+    check_refs(refs_run, ref_T, B, N, xs)
     if tuple(feasible.shape) != (B,) or feasible.dtype != torch.bool:
         raise ValueError(f"feasible: {tuple(feasible.shape)} {feasible.dtype}, "
                          f"expected ({B},) bool")

@@ -35,15 +35,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     lines = dict(l.split(" ", 1) for l in out.stdout.strip().splitlines())
-    # every module of the port, the rollout kernel's wrapper included
-    assert int(lines["MODULES"]) >= 25
+    # every module of the port, the diff kernel's wrapper included
+    assert int(lines["MODULES"]) >= 26
     assert lines["LEAKED"] == "[]", lines["LEAKED"]
 
 
 def test_sources_do_not_mention_jax_imports():
     files = list((REPO / "ffmpc_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 26
+    assert len(files) >= 27
     assert REPO / "ffmpc_tpu_torch" / "solver" / "rollout_cuda.py" in files
+    assert REPO / "ffmpc_tpu_torch" / "solver" / "diff_cuda.py" in files
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()

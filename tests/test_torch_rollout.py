@@ -339,8 +339,9 @@ GOLDEN = "tests/fixtures/solver_golden.npz"
 def test_solve_matches_golden_fixture():
     """The force-feedback contact case of the framework-free golden fixture
     (``tests/test_solver_golden.py``: float64, N=12, 10 iterations, its own
-    weights), solved by the port with both modes "kernel" (the plain
-    versions on the CPU), at that test's bar: us atol 1e-6, cost rtol 1e-8."""
+    weights), solved by the port with its default settings, all three modes
+    "kernel" (backward, rollout and diff; the plain versions on the CPU), at
+    that test's bar: us atol 1e-6, cost rtol 1e-8."""
     from pathlib import Path
     from ffmpc_tpu_torch.core import make_panda_model, gravity_torque
     from ffmpc_tpu_torch.mpc.controllers import make_vertical_down_R
@@ -361,8 +362,10 @@ def test_solve_matches_golden_fixture():
         torch.as_tensor(make_vertical_down_R()), y_ref=x0, dtype=torch.float64,
         device="cpu")
     knot = taction.make_augmented_knot(model, W, surface=True)
+    settings = TSettings(max_iters=10)
+    assert (settings.backward_mode, settings.rollout_mode, settings.diff_mode) == ("kernel",) * 3
     res = t_solve(knot, refs_run, ref_T, x0[None], x0.repeat(1, Ng + 1, 1),
-                  tau_g.repeat(1, Ng, 1), TSettings(max_iters=10))
+                  tau_g.repeat(1, Ng, 1), settings)
     with np.load(path) as z:
         us_ref = z["ff_contact_vector_us"]
         cost_ref = float(z["ff_contact_vector_cost"])

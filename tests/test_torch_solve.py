@@ -1,6 +1,7 @@
 """The ported slices as a whole: batched BoxFDDP solve of the force-feedback
-OCP, PyTorch port (CPU, float64, default settings: backward and rollout mode
-"kernel", so the plain versions on these CPU tensors) == the JAX package's
+OCP, PyTorch port (CPU, float64, default settings: backward, rollout and diff
+mode "kernel", so the plain versions on these CPU tensors; and with
+diff_mode "plain") == the JAX package's
 ``make_batched_solve_fn(..., calc_mode="vector", solve_impl="vmap")`` with
 the fused backward kernel in interpret mode.  (The rollout's plain version
 is held against the JAX scalar knot, the TPU rollout kernel's own body, in
@@ -72,9 +73,10 @@ def FDDPResultNumpy(res):
     return type(res)(*(f.numpy() for f in res))
 
 
-def t_solver(problem, max_iters, mode="plain"):
+def t_solver(problem, max_iters, mode="plain", diff_mode=None):
     return t_make(problem["mt"], t_weights(),
-                  TSettings(max_iters=max_iters, backward_mode=mode, rollout_mode=mode),
+                  TSettings(max_iters=max_iters, backward_mode=mode, rollout_mode=mode,
+                            diff_mode=diff_mode or mode),
                   t_traj(),
                   TEpisode(controller="force_feedback", horizon=N),
                   problem["q0"], dtype=torch.float64, device="cpu")
@@ -93,14 +95,15 @@ def test_batched_solve_equals_jax(problem, max_iters, want_iters):
         problem["q0"], dtype=jnp.float64, calc_mode="vector", solve_impl="vmap"))
     rj = solve_j(*[jnp.asarray(a) for a in problem["args"]])
     st = TSettings(max_iters=max_iters)
-    assert (st.backward_mode, st.rollout_mode) == ("kernel", "kernel")
-    rt = t_solver(problem, max_iters, mode="kernel")(*problem["args"])
-
-    for name in FLAG_FIELDS:
-        assert np.array_equal(getattr(rt, name).numpy(), np.asarray(getattr(rj, name))), name
-    assert rt.iters.tolist() == want_iters
-    assert_fields_close(FDDPResultNumpy(rt), rj)
-    np.testing.assert_allclose(rt.xreg.numpy(), np.asarray(rj.xreg), rtol=1e-12)
+    assert (st.backward_mode, st.rollout_mode, st.diff_mode) == ("kernel",) * 3
+    for diff_mode in ("kernel", "plain"):
+        rt = t_solver(problem, max_iters, mode="kernel", diff_mode=diff_mode)(*problem["args"])
+        for name in FLAG_FIELDS:
+            assert np.array_equal(getattr(rt, name).numpy(),
+                                  np.asarray(getattr(rj, name))), (diff_mode, name)
+        assert rt.iters.tolist() == want_iters
+        assert_fields_close(FDDPResultNumpy(rt), rj)
+        np.testing.assert_allclose(rt.xreg.numpy(), np.asarray(rj.xreg), rtol=1e-12)
 
 
 def test_finished_lane_is_frozen_and_lanes_are_independent(problem):
@@ -141,7 +144,8 @@ def test_first_iteration_has_active_torque_bounds(problem):
     from ffmpc_tpu_torch.ocp.action import make_augmented_knot
     from ffmpc_tpu_torch.ocp.problem import build_problem_refs
     from ffmpc_tpu_torch.solver.backward_cuda import backward_box_reference
-    from ffmpc_tpu_torch.solver.fddp import backward_inputs
+    from ffmpc_tpu_torch.solver.diff_cuda import diff_reference
+    from ffmpc_tpu_torch.solver.fddp import backward_inputs, control_bounds
     W = t_weights()
     ts, y0s, xs, us = (torch.as_tensor(a) for a in problem["args"])
     x_reg = torch.cat([torch.as_tensor(problem["q0"]), torch.zeros(7, dtype=torch.float64)])
@@ -149,8 +153,9 @@ def test_first_iteration_has_active_torque_bounds(problem):
         t_traj(), ts, N, W.dt_ocp, x_reg, gravity_torque(problem["mt"], y0s[:, :7]),
         make_vertical_down_R(), y_ref=y0s, dtype=torch.float64, device="cpu")
     knot = make_augmented_knot(problem["mt"], W, surface=True)
-    bi = backward_inputs(knot, refs_run, ref_T, y0s, xs, us,
-                         torch.zeros(B, dtype=torch.bool))
+    bi = backward_inputs(diff_reference(knot, refs_run, ref_T, xs, us), y0s, xs, us,
+                         torch.zeros(B, dtype=torch.bool),
+                         *control_bounds(knot, torch.float64, "cpu"))
     assert not bool(bi.feasible.any())            # gaps are open on a cold rollout
     reg = torch.full((B,), 1e-9, dtype=torch.float64)
     K = backward_box_reference(*bi.args, reg, reg)[0]
@@ -211,10 +216,11 @@ def test_unsupported_settings_raise(problem):
     # the backward pass is always box-constrained: there is no switch
     with pytest.raises(TypeError, match="use_box"):
         TSettings(use_box=False)
-    with pytest.raises(ValueError, match="backward_mode"):
-        t_make(problem["mt"], t_weights(), TSettings(backward_mode="pallas"), t_traj(),
-               TEpisode(controller="force_feedback", horizon=N), problem["q0"],
-               dtype=torch.float64, device="cpu")(*problem["args"])
+    for field in ("backward_mode", "rollout_mode", "diff_mode"):
+        with pytest.raises(ValueError, match=field):
+            t_make(problem["mt"], t_weights(), TSettings(**{field: "pallas"}), t_traj(),
+                   TEpisode(controller="force_feedback", horizon=N), problem["q0"],
+                   dtype=torch.float64, device="cpu")(*problem["args"])
     with pytest.raises(ValueError, match="force_feedback"):
         t_make(problem["mt"], t_weights(), TSettings(), t_traj(),
                TEpisode(controller="classical", horizon=N), problem["q0"],
