@@ -5,19 +5,28 @@ solves of the flagship force-feedback contact problem: nx=21, nu=7, N=40,
 10 iterations, 10 step lengths, float32, B=256 and B=1024, the derivative
 pass, the backward sweep and the line-search rollout on their CUDA kernels)
 through
-`ffmpc_tpu_torch.run.batch_runner.make_batched_solve_fn`, after building every
+`ffmpc_tpu_torch.run.batch_runner.make_batched_solve_fn`, and the closed
+loop on the same three kernels (`make_episode_fn`: the flagship episode at
+E=1 over 240 ticks through first contact, and `run/ensemble.py::
+run_ensemble`, 512 perturbed episodes of 100 ticks), after building every
 CUDA kernel from `ffmpc_tpu_torch/csrc/` and holding each against its plain
 PyTorch version on the card.  Phases: device, build, kernels,
 small_reference, golden (the framework-free solver fixture), solve, stages
-(where one iteration's time goes).  Each phase prints JSON lines; any failure
-raises, so the exit code is non-zero and the final line is not printed.
+(where one iteration's time goes), probes (the four probe kernels of
+`csrc/probes.cu` through their entry points `ffmpc_tpu_torch/tools/`),
+plant (float32 against float64; the framework-free replay fixture),
+closed_loop, b1 (the B=1 replan, RTI and closed-loop tick against the 5 ms
+budget), ensemble.  Each phase prints JSON lines; any failure raises, so the
+exit code is non-zero and the final line is not printed.
 
 The last line is `{"ok": true, "device": {...}}`; the line before it is
 `{"kernels": [...]}` with, for every kernel (backward_sweep, rollout,
-knot_diff), its launches on the main path,
-its error against the plain version, its time, the plain version's time and
-the card's bound for the same work.  Needs a CUDA device: without one it
-exits non-zero before printing any result.
+knot_diff, and the probes probe_math, probe_stream, probe_stream_io,
+probe_roundtrip), its launches (the solver kernels' on the main path, with
+the closed loop's and the ensemble's beside; the probes' on their entry
+points), its error against the plain version, its time, the plain version's
+time and the card's bound for the same work.  Needs a CUDA device: without
+one it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -1219,6 +1228,529 @@ def phase_stages():
               ITERS * per_iter["kernel"] + stages["final_cost_per_solve"])})
 
 
+# ---------------------------------------------------------------------------
+# The probes (csrc/probes.cu) and the closed loop: plant, episode, B=1 legs,
+# ensemble.
+# ---------------------------------------------------------------------------
+
+def stream_bytes_flops(stage, n_knots=4, lanes=128):
+    """Bytes a probe stream stage must move (the knot rows it reads, the
+    second input, the outputs it writes; float32) and the operations it does,
+    counted from the loops of csrc/probes.cu per lane and knot."""
+    rows_read = {1: 8, 2: 595, 3: 595, 4: 441, 5: 588, 6: 588}[stage]
+    rows_out = 8 / n_knots + (448 if stage >= 4 else 0) + (160 if stage == 6 else 0)
+    term = 21 * lanes if stage == 6 else 0
+    nbytes = 4 * (n_knots * lanes * (rows_read + rows_out) + term)
+    per_knot = {1: 8, 4: 8,
+                2: 9443,            # U, Quu, Fx s, Qu, accumulate
+                3: 14822,           # stage 2 + 4 box-QP iterations + gain solves
+                5: 63928,           # W, U, Qxx, Qxu, Quu, solves, Vxx_new, symmetrize
+                6: 612}[stage]      # v = Fu^T (s + base), accumulate
+    return nbytes, n_knots * lanes * per_knot
+
+
+def bound_record(nbytes, flops):
+    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    flop_ms = flops / PEAK_FP32_FLOPS * 1e3
+    return {"bound_ms": max(byte_ms, flop_ms),
+            "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
+            "bytes_ms": byte_ms, "operations_ms": flop_ms}
+
+
+def phase_probes():
+    """The four probe kernels of csrc/probes.cu through their entry points
+    (ffmpc_tpu_torch/tools/probe_*.py), each with its own gate: every math op
+    within the CUDA Math API's documented ulp bound of float64; every stream
+    stage within its stated tolerance of the plain version (STREAM_TOL) with
+    the same non-finite entries, and stage 3 again on spd_knots with every
+    output finite; the round trip byte-exact with the accumulator within
+    1e-5.  The launch counts are read around each entry point's run, the
+    stream kernel's per stage (the probes are no part of the solver's
+    path).  Then each
+    kernel's time against its plain version's and its bound.  Returns the
+    four entries of the `kernels` line."""
+    from ffmpc_tpu_torch.tools import probe_dma_roundtrip as prt
+    from ffmpc_tpu_torch.tools import probe_mosaic as pmath
+    from ffmpc_tpu_torch.tools import probe_mosaic2 as pstream
+
+    pmath.math_op.launches = 0
+    res_math = pmath.probe_math()
+    n_math = pmath.math_op.launches
+    pstream.stream_stage.launches = dict.fromkeys(pstream.STAGES, 0)
+    res_stream = pstream.probe_stream()
+    n_stream = dict(pstream.stream_stage.launches)
+    prt.roundtrip.launches = 0
+    res_rt = prt.probe_roundtrip()
+    n_rt = prt.roundtrip.launches
+    emit({"phase": "probes", "math": res_math, "stream": res_stream, "roundtrip": res_rt,
+          "launches": {"probe_math": n_math, "probe_stream": n_stream,
+                       "probe_roundtrip": n_rt}})
+    failed = [n for n, r in (("math", res_math), ("stream", res_stream), ("roundtrip", res_rt))
+              if not r["ok"]]
+    if failed:
+        raise RuntimeError(f"probe kernels disagree with their plain versions: {failed}")
+    if n_math < len(pmath.OPS) or min(n_stream.values()) < 1 or n_rt < 1:
+        raise RuntimeError(f"probe kernels not launched: {n_math}, {n_stream}, {n_rt}")
+
+    x = pmath.probe_input()
+    by_op = {op: {"ms": cuda_time_ms(lambda: pmath.math_op(x, op)),
+                  "plain_ms": cuda_time_ms(lambda: pmath.math_reference(x, op))}
+             for op in pmath.OPS}
+    knots, term = pstream.probe_inputs()
+    by_stage = {}
+    for st in pstream.STAGES:
+        tm = term if st == 6 else None
+        nbytes, flops = stream_bytes_flops(st)
+        by_stage[st] = {"ms": cuda_time_ms(lambda: pstream.stream_stage(knots, st, tm)),
+                        "plain_ms": cuda_time_ms(lambda: pstream.stream_reference(knots, st, tm),
+                                                 reps=1, rounds=3),
+                        **bound_record(nbytes, flops)}
+    rk = prt.probe_inputs()
+    rt_ms = cuda_time_ms(lambda: prt.roundtrip(rk))
+    rt_plain = cuda_time_ms(lambda: prt.roundtrip_reference(rk))
+    emit({"phase": "probes", "timing_float32": {"math_by_op": by_op, "stream_by_stage": by_stage,
+                                                "roundtrip": {"ms": rt_ms, "plain_ms": rt_plain}}})
+
+    def stream_entry(name, stages, replaces):
+        runs = [r for st in stages
+                for r in (res_stream["stages"][st], res_stream["stages"][st].get("spd")) if r]
+        errs = [o["max_abs_err"] for r in runs for o in r["outputs"].values()]
+        tot = {k: sum(by_stage[st][k] for st in stages)
+               for k in ("ms", "plain_ms", "bytes_ms", "operations_ms")}
+        b = max(tot["bytes_ms"], tot["operations_ms"])
+        return {"name": name, "route": "cuda", "source": "ffmpc_tpu_torch/csrc/probes.cu",
+                "replaces": replaces, "launches": sum(n_stream[st] for st in stages),
+                "launches_by_stage": {str(st): n_stream[st] for st in stages},
+                "max_abs_err": max(errs),
+                "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": b,
+                "bound_by": "bytes" if tot["bytes_ms"] >= tot["operations_ms"] else "operations",
+                "library_ms": None, "entry_point": "ffmpc_tpu_torch.tools.probe_mosaic2",
+                "note": f"one launch per stage {list(stages)}, times summed",
+                "by_stage": {str(st): by_stage[st] for st in stages}}
+
+    n_bytes_math = 2 * x.numel() * 4
+    sin = by_op["sin"]
+    rt_bytes = 2 * rk.numel() * 4 + 8 * rk.shape[2] * 4
+    rt_flops = rk.numel() + 8 * rk.shape[0] * rk.shape[2]
+    return [
+        {"name": "probe_math", "route": "cuda", "source": "ffmpc_tpu_torch/csrc/probes.cu",
+         "replaces": "tools/probe_mosaic.py:34", "launches": n_math,
+         "max_abs_err": max(r["max_abs_diff_vs_plain32"] for r in res_math["ops"].values()),
+         "ms": sin["ms"], "plain_ms": sin["plain_ms"],
+         **bound_record(n_bytes_math, x.numel()),
+         "library_ms": sin["plain_ms"], "entry_point": "ffmpc_tpu_torch.tools.probe_mosaic",
+         "note": "times of the sin launch (torch.sin is the one-call library equivalent); "
+                 "every op in by_op; max_ulp in the probes phase",
+         "by_op": by_op},
+        stream_entry("probe_stream", (1, 2, 3, 4, 5), "tools/probe_mosaic2.py:202"),
+        stream_entry("probe_stream_io", (6,), "tools/probe_mosaic2.py:171"),
+        {"name": "probe_roundtrip", "route": "cuda", "source": "ffmpc_tpu_torch/csrc/probes.cu",
+         "replaces": "tools/probe_dma_roundtrip.py:48", "launches": n_rt,
+         "max_abs_err": max(res_rt["vs_plain"].values()),
+         "ms": rt_ms, "plain_ms": rt_plain, **bound_record(rt_bytes, rt_flops),
+         "library_ms": None, "entry_point": "ffmpc_tpu_torch.tools.probe_dma_roundtrip"},
+    ]
+
+
+# float32 plant step against float64 on the same inputs, per field, against
+# max(max|float64 field|, 1): measured 3.3e-5 at most on an H100 (the contact
+# force, whose stiffness turns the tool's float32 position rounding into
+# newtons), so 1e-3 leaves 30x.
+PLANT_F32_RTOL = 1e-3
+PLANT_E = 512
+REPLAY_FIXTURE = "tests/fixtures/host_ff_flat_replay.npz"
+
+
+def pressed_and_free_states(E, dtype64=torch.float64):
+    """E plant states around the neutral pose (seed 3) with a table plane per
+    plant placed so that its tool sphere is pressed 0.5 mm or 0.2 mm into
+    it, 1 mm inside the 2 mm margin zone, or 5 cm above it (in turn), a
+    little velocity, filter states and a command of gravity torque plus a
+    25 N push down (through J^T) with noise.  float64 on the card."""
+    from ffmpc_tpu_torch.core.kinematics import ee_jacobian
+    from ffmpc_tpu_torch.core.panda import TOOL_SPHERE_RADIUS
+    rng = np.random.default_rng(3)
+    q0 = np.asarray(KEYFRAMES["neutral"])
+    model = make_panda_model("plant", dtype=dtype64, device="cuda")
+
+    def T(a):
+        return torch.as_tensor(a, dtype=dtype64, device="cuda")
+
+    q = T(q0[None] + 0.02 * rng.normal(size=(E, 7)))
+    gaps = T([-5e-4, 1e-3, 0.05, -2e-4])[torch.arange(E, device="cuda") % 4]
+    n = T([0.0, 0.0, 1.0])
+    point = fk(model, q).ee_p - n * (TOOL_SPHERE_RADIUS + gaps[:, None])
+    v, tmf, tmaf = (T(0.05 * rng.normal(size=(E, 7))), T(rng.normal(size=(E, 7))),
+                    T(rng.normal(size=(E, 7))))
+    tau = (gravity_torque(model, q)
+           + torch.einsum("bij,i->bj", ee_jacobian(model, q)[0], T([0.0, 0.0, -25.0]))
+           + 0.3 * T(rng.normal(size=(E, 7))))
+    return (q, v, tmf, tmaf), point, tau, gaps
+
+
+def replay_fixture(dtype):
+    """The framework-free replay of a recorded host MuJoCo force-feedback
+    episode through the plant at `dtype`: the fidelity bounds of
+    tests/test_device_plant_fidelity.py."""
+    from ffmpc_tpu_torch.sim.device_plant import init_plant_state, make_table_params, plant_step
+    with np.load(Path(__file__).resolve().parent / REPLAY_FIXTURE) as z:
+        rec = {k: np.asarray(z[k]) for k in z.files}
+    model = make_panda_model("plant", dtype=dtype, device="cuda")
+    table = make_table_params(0.0, dtype=dtype, device="cuda")
+    state = init_plant_state(np.asarray(KEYFRAMES["neutral"]), dtype=dtype, device="cuda")
+    taus = torch.as_tensor(rec["tau"], dtype=dtype, device="cuda")
+    qs, ees, fns = [], [], []
+    t0 = time.perf_counter()
+    for tau in taus:
+        state, obs = plant_step(model, table, state, tau, timestep=0.001, n_substeps=5)
+        qs.append(obs.q)
+        ees.append(obs.ee_pos)
+        fns.append(obs.f_contact_normal)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(taus)
+    qs, ees, fns = (torch.stack(a).double().cpu().numpy() for a in (qs, ees, fns))
+    dee = np.linalg.norm(ees - rec["ee"], axis=1)
+    dq = np.abs(qs - rec["q"]).max(axis=1)
+    i1 = min(int(1.0 / 0.005), len(dee) - 1)
+    dfn = np.abs(fns - rec["fn"])[rec["t"] >= 0.9]
+    r = {"dtype": str(dtype).replace("torch.", ""), "ticks": len(taus),
+         "ee_err_at_1s_m": float(dee[i1]), "q_err_at_1s_rad": float(dq[i1]),
+         "mean_contact_dfn_N": float(dfn.mean()), "max_ee_err_m": float(dee.max()),
+         "host_ms_per_plant_step": ms}
+    r["ok"] = bool(r["ee_err_at_1s_m"] < 1e-3 and r["q_err_at_1s_rad"] < 0.01
+                   and r["mean_contact_dfn_N"] < 2.0 and r["max_ee_err_m"] < 5e-3)
+    return r
+
+
+def phase_plant():
+    """plant_step at float32 against float64 on the card at E=512 plants,
+    pressed, in the margin zone and free (every state and observation field
+    within PLANT_F32_RTOL of its scale, the same contact flags, fn > 0 where
+    pressed and 0 where free); then the replay fixture at both dtypes within
+    the fidelity bounds."""
+    from ffmpc_tpu_torch.sim.device_plant import PlantState, make_table_params, plant_step
+    state64, point, tau, gaps = pressed_and_free_states(PLANT_E)
+    outs = {}
+    for dtype in (torch.float64, torch.float32):
+        model = make_panda_model("plant", dtype=dtype, device="cuda")
+        table = make_table_params(0.0, dtype=dtype, device="cuda")._replace(point=point.to(dtype))
+        st = PlantState(*(a.to(dtype) for a in state64))
+        outs[dtype] = plant_step(model, table, st, tau.to(dtype), timestep=0.001, n_substeps=5)
+    torch.cuda.synchronize()
+    (s64, o64), (s32, o32) = outs[torch.float64], outs[torch.float32]
+    rel, ok = {}, True
+    for prefix, a64, a32 in (("state.", s64, s32), ("obs.", o64, o32)):
+        for name, a, b in zip(a64._fields, a64, a32):
+            if a.dtype == torch.bool:
+                rel[prefix + name] = int((a != b).sum())
+                ok = ok and rel[prefix + name] == 0
+                continue
+            sc = max(float(a.abs().max()), 1.0)
+            rel[prefix + name] = float((b.double() - a).abs().max()) / sc
+            ok = ok and rel[prefix + name] <= PLANT_F32_RTOL
+    fn = o64.f_contact_normal
+    pressed, free = gaps < 0, gaps > 0.01
+    ok = ok and bool((fn[pressed] > 0).all()) and bool((fn[free] == 0).all())
+    replay = [replay_fixture(dt) for dt in (torch.float64, torch.float32)]
+    rec = {"phase": "plant", "E": PLANT_E, "f32_vs_f64_rel_err": rel,
+           "f32_rtol": PLANT_F32_RTOL, "pressed": int(pressed.sum()),
+           "margin_zone": int(((gaps > 0) & ~free).sum()), "free": int(free.sum()),
+           "fn_pressed_min_N": float(fn[pressed].min()), "fn_free_max_N": float(fn[free].max()),
+           "replay": replay}
+    emit(rec)
+    if not ok or not all(r["ok"] for r in replay):
+        raise RuntimeError(f"plant: float32 vs float64 or replay fidelity out of bounds: {rec}")
+
+
+def flagship_episode(dtype, horizon, n_ticks, settings, device="cuda"):
+    """The flagship force-feedback episode (weights, trajectory, filter
+    poles of the JAX ensemble), flat table, from the neutral pose."""
+    from ffmpc_tpu_torch.ocp.weights import FLAGSHIP_DT_MPC, flagship_ff_alpha
+    from ffmpc_tpu_torch.run.batch_runner import make_episode_fn
+    from ffmpc_tpu_torch.sim.device_plant import make_table_params
+    W = flagship_weights()
+    model = make_panda_model("plant", dtype=dtype, device=device)
+    ep = EpisodeConfig(controller="force_feedback", horizon=horizon, n_ticks=n_ticks,
+                       ff_alpha_ctrl=flagship_ff_alpha(FLAGSHIP_DT_MPC))
+    return make_episode_fn(model, W, settings, flagship_trajectory(),
+                           make_table_params(0.0, dtype=dtype, device=device), ep,
+                           np.asarray(KEYFRAMES["neutral"]), dtype=dtype, device=device)
+
+
+def reset_launches():
+    backward_box.launches = rollout.launches = diff_all.launches = 0
+
+
+def read_launches():
+    return {"backward_sweep": backward_box.launches, "rollout": rollout.launches,
+            "knot_diff": diff_all.launches}
+
+
+def require_launches(path, counts, at_least):
+    if min(counts.values()) < at_least:
+        raise RuntimeError(f"{path}: kernels not launched {at_least} times: {counts}")
+
+
+# Closed loop (a): float64, kernel mode vs plain mode on the card, every
+# telemetry field within CL_F64_RTOL of its largest magnitude (max with 1).
+# The kernels agree with the plain versions to 1e-12 and below in the gains
+# and trajectories (PERF.md), and the box QP's argmin ties, which can move
+# kff by about reg / lambda_min(Quu) (ROADMAP queue 3), did not show in
+# these eight ticks on an H100 (measured at most 6.5e-12, tau_cmd); 1e-8
+# leaves room for a tie without hiding a fault (a wrong index or sign
+# gives O(1)).
+CL_F64_RTOL = 1e-8
+CL_ENSEMBLE_E = 2
+CL_TRACE_EVERY = 20
+
+
+def telemetry_summary(tl, every=CL_TRACE_EVERY):
+    """fn and ee-error trace of episode 0 every `every` ticks."""
+    t = tl["t"][0].double().cpu().numpy()
+    fn = tl["fn_meas"][0].double().cpu().numpy()
+    e3 = tl["err_3d"][0].double().cpu().numpy()
+    return [{"t": round(float(t[k]), 4), "fn_N": float(fn[k]), "err_3d_mm": float(e3[k]) * 1e3}
+            for k in range(0, len(t), every)] + [
+        {"t": round(float(t[-1]), 4), "fn_N": float(fn[-1]), "err_3d_mm": float(e3[-1]) * 1e3}]
+
+
+def phase_closed_loop():
+    """(a) The float64 episode at E=2, N=8, 3 iterations, 8 ticks from
+    t0 = 0.78 s (the free knot until 0.80 s, the contact knot after), on the
+    three kernels against plain mode: same iterations on every tick, every
+    telemetry field within CL_F64_RTOL.  (b) Full width: float32, E=1, N=40,
+    10 iterations, 240 ticks from t = 0 (contact from tick 161), the three
+    kernels: finite telemetry and no tick on the divergence fallback, unless
+    a float64 run of the same ticks takes the same fallback ticks.  Returns
+    the launch counts of (b)'s run."""
+    dtype = torch.float64
+    q0s = torch.as_tensor(KEYFRAMES["neutral"], dtype=dtype, device="cuda")[None].repeat(
+        CL_ENSEMBLE_E, 1)
+    q0s[1] += 0.01
+    tl = {}
+    for mode in ("kernel", "plain"):
+        S = FDDPSettings(max_iters=3, backward_mode=mode, rollout_mode=mode, diff_mode=mode)
+        ep = flagship_episode(dtype, 8, 8, S)
+        reset_launches()
+        tl[mode] = ep.chunk(ep.init(q0s), 0.78, 8)[1]
+        counts = read_launches()
+        if mode == "kernel":
+            require_launches("closed loop (a)", counts, 8)
+        elif any(counts.values()):
+            raise RuntimeError(f"closed loop (a): plain mode launched kernels: {counts}")
+    torch.cuda.synchronize()
+    rel = {}
+    for k, a in tl["kernel"].items():
+        b = tl["plain"][k]
+        if a.dtype in (torch.bool, torch.int32):
+            rel[k] = int((a != b).sum())
+            continue
+        rel[k] = float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
+    ts = tl["kernel"]["t"][0] - 0.005
+    rec_a = {"dtype": "float64", "E": CL_ENSEMBLE_E, "N": 8, "max_iters": 3, "t0": 0.78,
+             "ticks": 8, "rel_err_kernel_vs_plain": rel, "rtol": CL_F64_RTOL,
+             "iters": tl["kernel"]["iters"][0].tolist(),
+             "contact_knot_ticks": int((ts >= 0.8).sum())}
+    ok = all(v == 0 for k, v in rel.items() if k in ("iters", "fallback")) and all(
+        v <= CL_F64_RTOL for k, v in rel.items() if k not in ("iters", "fallback"))
+    ok = ok and 0 < rec_a["contact_knot_ticks"] < 8
+    emit({"phase": "closed_loop", "case": "a", **rec_a})
+    if not ok:
+        raise RuntimeError(f"closed loop (a): kernel mode and plain mode disagree: {rec_a}")
+
+    # (b) full width
+    S = FDDPSettings(max_iters=ITERS)
+    ep = flagship_episode(torch.float32, HORIZON, 240, S)
+    q0 = torch.as_tensor(KEYFRAMES["neutral"], dtype=torch.float32, device="cuda")[None]
+    reset_launches()
+    t0 = time.perf_counter()
+    tl = ep(q0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    require_launches("closed loop (b)", counts, 240)
+    finite = all(bool(torch.isfinite(v).all()) for v in tl.values() if v.is_floating_point())
+    fb = tl["fallback"][0].nonzero().flatten().tolist()
+    rec_b = {"dtype": "float32", "E": 1, "N": HORIZON, "max_iters": ITERS, "ticks": 240,
+             "wall_s": wall, "ms_per_tick": wall / 240 * 1e3, "launches": counts,
+             "finite": finite, "fallback_ticks": fb, "n_fallback_ticks": len(fb),
+             "mean_iters": float(tl["iters"].double().mean()),
+             "contact_ticks": int((tl["fn_meas"][0] > 0).sum()),
+             "fn_final_N": float(tl["fn_meas"][0, -1]),
+             "err_3d_final_mm": float(tl["err_3d"][0, -1]) * 1e3,
+             "trace": telemetry_summary(tl)}
+    ok = finite
+    if fb:
+        ep64 = flagship_episode(torch.float64, HORIZON, 240, S)
+        tl64 = ep64(q0.double())
+        fb64 = tl64["fallback"][0].nonzero().flatten().tolist()
+        rec_b["float64_fallback_ticks"] = fb64
+        ok = ok and set(fb) <= set(fb64)
+    emit({"phase": "closed_loop", "case": "b", **rec_b})
+    if not ok:
+        raise RuntimeError(f"closed loop (b): non-finite telemetry or fallback ticks {fb}")
+    return counts
+
+
+B1_BUDGET_MS = 5.0
+B1_SAMPLES = 50
+
+
+def phase_b1():
+    """The B=1 legs of bench.py at full width (float32, N=40, the contact
+    knot, the three kernels): the replan p50 / p99 of 10 iterations over 50
+    distinct warm-start inputs (one untimed first), the RTI p50 at
+    max_iters=1, (p50 - rti) / 9 per iteration; the closed-loop tick (the
+    episode at E=1, 40 ticks from t = 0, 3 timed runs after a warm-up); and
+    one B=1 tick split into solve / plant / policy (host clock around the
+    episode's calls of fddp.solve and plant_step, each ended by a
+    synchronize; policy is the rest of the tick), with the host syncs of the
+    solve counted (bool() of a card tensor).  The 5 ms budget is printed
+    beside, not gated."""
+    from ffmpc_tpu_torch.run import batch_runner
+    dtype = torch.float32
+    model, W, traj, ep, q0 = flagship(dtype)
+    tau_g = gravity_torque(model, torch.as_tensor(q0, dtype=dtype, device="cuda")).cpu().numpy()
+    rng = np.random.default_rng(0)
+    argsets = [warm_start_args(1, q0, tau_g, rng) for _ in range(B1_SAMPLES + 1)]
+
+    def sample_ms(solve):
+        solve(*argsets[0])
+        torch.cuda.synchronize()
+        out = []
+        for a in argsets[1:]:
+            t0 = time.perf_counter()
+            solve(*a)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return np.asarray(out)
+
+    replan = sample_ms(make_batched_solve_fn(model, W, FDDPSettings(max_iters=ITERS), traj, ep,
+                                             q0, surface=True, dtype=dtype, device="cuda"))
+    rti = sample_ms(make_batched_solve_fn(model, W, FDDPSettings(max_iters=1), traj, ep, q0,
+                                          surface=True, dtype=dtype, device="cuda"))
+    p50, p99, rti50 = (float(np.percentile(replan, 50)), float(np.percentile(replan, 99)),
+                       float(np.percentile(rti, 50)))
+
+    episode = flagship_episode(dtype, HORIZON, 40, FDDPSettings(max_iters=ITERS))
+    q0b = torch.as_tensor(q0, dtype=dtype, device="cuda")[None]
+    episode(q0b)
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        episode(q0b)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3 / 40)
+
+    # one tick split: wrap the episode's two module-level calls
+    acc = {"solve": 0.0, "plant": 0.0, "syncs_in_solve": 0}
+    orig_solve, orig_plant = batch_runner.fddp_solve, batch_runner.plant_step
+    orig_bool = torch.Tensor.__bool__
+
+    def counting_bool(t):
+        if t.is_cuda:
+            acc["syncs_in_solve"] += 1
+        return orig_bool(t)
+
+    def timed(fn, key):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if key == "solve":
+                torch.Tensor.__bool__ = counting_bool
+            try:
+                r = fn(*a, **k)
+                torch.cuda.synchronize()
+            finally:
+                torch.Tensor.__bool__ = orig_bool
+            acc[key] += (time.perf_counter() - t0) * 1e3
+            return r
+        return wrapper
+
+    carry = episode.init(q0b)
+    carry, _ = episode.chunk(carry, 0.0, 4)            # a warm start, as in a running loop
+    split = []
+    batch_runner.fddp_solve = timed(orig_solve, "solve")
+    batch_runner.plant_step = timed(orig_plant, "plant")
+    try:
+        for k in range(4, 9):
+            for key in acc:
+                acc[key] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            carry, tl = episode.chunk(carry, k * 0.005, 1)
+            torch.cuda.synchronize()
+            tick = (time.perf_counter() - t0) * 1e3
+            split.append({"tick_ms": tick, "solve_ms": acc["solve"], "plant_ms": acc["plant"],
+                          "policy_ms": tick - acc["solve"] - acc["plant"],
+                          "syncs_in_solve": acc["syncs_in_solve"], "iters": int(tl["iters"][0, 0])})
+    finally:
+        batch_runner.fddp_solve, batch_runner.plant_step = orig_solve, orig_plant
+    med = {k: float(np.median([s[k] for s in split])) for k in split[0]}
+    emit({"phase": "b1", "dtype": "float32", "N": HORIZON, "budget_ms": B1_BUDGET_MS,
+          "replan_ms_p50": p50, "replan_ms_p99": p99, "replan_samples": len(replan),
+          "rti_ms_p50": rti50, "iter_ms_estimate": max(p50 - rti50, 0.0) / 9.0,
+          "closed_loop_tick_ms": float(np.median(runs)), "closed_loop_tick_ms_runs": runs,
+          "tick_split_median_of_5": med, "tick_split": split,
+          "over_budget_factor_replan_p50": p50 / B1_BUDGET_MS})
+
+
+# The JAX package's ensemble on the same configuration (512 x 100, flat,
+# float32, seed 0, perturb_q 0.01), quality figures only (their speed is not
+# the port's):
+# - ENSEMBLE_JAX: the package as it stands, run on the CPU by its own entry
+#   point (`JAX_PLATFORMS=cpu python -m ffmpc_tpu.run.ensemble --batch 512
+#   --ticks 100`); the gate's reference.  The port on an H100 came within
+#   1.5e-6 of it (relative), float32 against float32 on another machine, so
+#   ENSEMBLE_RMS_RTOL = 1e-3 holds the closed loop at full width while
+#   leaving float32's parting over 100 ticks room.  At small E and float64
+#   the port's run_ensemble equals the package's on the CPU
+#   (tests/test_torch_ensemble.py).
+# - ENSEMBLE_JAX_RECORD: results_ensemble512.json, taken on a TPU by the
+#   package's round-2 revision (ec547c9).  The package has changed since (its
+#   solver, knot and episode, in later commits) and no longer reproduces it.
+#   Printed beside with its relative distance, not gated: the port does not
+#   meet "within 5% of 0.04174".
+ENSEMBLE_JAX = {"rms_tan_mean": 0.047054484486579895, "rms_tan_p95": 0.04954278841614723,
+                "fn_final_mean": 0.0}
+ENSEMBLE_JAX_RECORD = {"rms_tan_mean": 0.04173944517970085,
+                       "rms_tan_p95": 0.04451100900769234, "fn_final_mean": 0.0}
+ENSEMBLE_RMS_RTOL = 1e-3
+
+
+def phase_ensemble():
+    """run_ensemble("force_feedback", "flat", batch=512, ticks=100, seed=0,
+    perturb_q=0.01) on the three kernels; rms_tan_mean and rms_tan_p95
+    within ENSEMBLE_RMS_RTOL of the JAX package's on the same configuration
+    (ENSEMBLE_JAX), fn_final_mean equal.  Returns the launch
+    counts of its run."""
+    from ffmpc_tpu_torch.run.ensemble import run_ensemble
+    reset_launches()
+    out, telem = run_ensemble("force_feedback", "flat", batch=512, ticks=100, seed=0,
+                              perturb_q=0.01, verbose=False, device="cuda")
+    counts = read_launches()
+    require_launches("ensemble", counts, 100)
+    finite = all(np.isfinite(v).all() for v in telem.values() if v.dtype.kind == "f")
+    rel = abs(out["rms_tan_mean"] - ENSEMBLE_JAX["rms_tan_mean"]) / ENSEMBLE_JAX["rms_tan_mean"]
+    rel95 = abs(out["rms_tan_p95"] - ENSEMBLE_JAX["rms_tan_p95"]) / ENSEMBLE_JAX["rms_tan_p95"]
+    rec = {"phase": "ensemble", **out, "launches": counts, "finite": finite,
+           "fallback_ticks": int(telem["fallback"].sum()),
+           "jax_package_cpu_float32": ENSEMBLE_JAX,
+           "jax_tpu_record_results_ensemble512_json": ENSEMBLE_JAX_RECORD,
+           "rms_tan_mean_rel_diff_vs_jax": rel, "rms_tan_p95_rel_diff_vs_jax": rel95,
+           "rtol": ENSEMBLE_RMS_RTOL,
+           "rms_tan_mean_rel_diff_vs_record": abs(
+               out["rms_tan_mean"] - ENSEMBLE_JAX_RECORD["rms_tan_mean"])
+           / ENSEMBLE_JAX_RECORD["rms_tan_mean"]}
+    emit(rec)
+    if (not finite or max(rel, rel95) > ENSEMBLE_RMS_RTOL
+            or out["fn_final_mean"] != ENSEMBLE_JAX["fn_final_mean"]):
+        raise RuntimeError(f"ensemble: {out} against JAX {ENSEMBLE_JAX} "
+                           f"(rtol {ENSEMBLE_RMS_RTOL}) or non-finite telemetry")
+    return counts
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1227,11 +1759,17 @@ def main():
     phase_golden()
     launches = phase_solve()
     phase_stages()
+    probes = phase_probes()
+    phase_plant()
+    paths = {"closed_loop_240_ticks": phase_closed_loop()}
+    phase_b1()
+    paths["ensemble_512x100"] = phase_ensemble()
     for entry in kernels:
         entry["launches_by_batch"] = {str(b): n[entry["name"]] for b, n in launches.items()}
         entry["launches"] = entry["launches_by_batch"][str(BATCHES[-1])]
+        entry["launches_by_path"] = {p: n[entry["name"]] for p, n in paths.items()}
     print(smi, flush=True)
-    emit({"kernels": kernels})
+    emit({"kernels": kernels + probes})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -205,14 +205,17 @@ def backward_inputs(d: KnotDerivs, x0, xs, us, feasible, u_lb, u_ub) -> Backward
 
 def solve(knot: KnotModel, refs_run: ProblemRefs, ref_T: ProblemRefs, x0,
           xs_init, us_init, settings: FDDPSettings = FDDPSettings(),
-          reg0: Optional[torch.Tensor] = None) -> FDDPResult:
+          reg0: Optional[torch.Tensor] = None,
+          consts: Optional[torch.Tensor] = None) -> FDDPResult:
     """Solve B shooting problems at once.
 
     refs_run: leading dims (B, N); ref_T: leading dim (B,); x0 (B, nx);
     xs_init (B, N+1, nx); us_init (B, N, nu); ``reg0`` optional (B,)
     overrides settings.reg_init per problem (an MPC loop carries the previous
-    solve's final regularization here).  Runs on the device and in the dtype
-    of ``xs_init``."""
+    solve's final regularization here).  ``consts`` optional: the knot's
+    ``pack_knot_consts`` in the solve's dtype, for callers that solve the
+    same knot many times (packed here otherwise).  Runs on the device and in
+    the dtype of ``xs_init``."""
     S = settings
     if S.backward_mode not in ("kernel", "plain"):
         raise ValueError(f"unknown backward_mode {S.backward_mode!r}")
@@ -230,7 +233,7 @@ def solve(knot: KnotModel, refs_run: ProblemRefs, ref_T: ProblemRefs, x0,
     x0, xs_init, us_init = x0.contiguous(), xs_init.contiguous(), us_init.contiguous()
     refs_run = ProblemRefs(*(a.contiguous() for a in refs_run))
     ref_T = ProblemRefs(*(a.contiguous() for a in ref_T))
-    if "kernel" in (S.rollout_mode, S.diff_mode):
+    if "kernel" in (S.rollout_mode, S.diff_mode) and consts is None:
         consts = pack_knot_consts(knot.model, knot.W, knot.surface, dtype)
     u_lb, u_ub = control_bounds(knot, dtype, device)
 

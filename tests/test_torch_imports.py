@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing every module of
-``ffmpc_tpu_torch`` and ``chip_smoke`` pulls in neither ``jax`` nor the JAX
-package, and entry points asked for "cuda" raise where there is no card
-(they never carry on on the CPU by themselves).
+``ffmpc_tpu_torch`` and ``chip_smoke`` pulls in neither ``jax``, nor the JAX
+package, nor ``mujoco`` (the card's machine has none), and entry points
+asked for "cuda" raise where there is no card (they never carry on on the
+CPU by themselves).
 """
 
 import subprocess
@@ -24,7 +25,8 @@ for n in names:
 import chip_smoke
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "jaxlib"
-                or m == "ffmpc_tpu" or m.startswith("ffmpc_tpu."))
+                or m == "ffmpc_tpu" or m.startswith("ffmpc_tpu.")
+                or m == "mujoco" or m.startswith("mujoco."))
 print("MODULES", len(names))
 print("LEAKED", leaked)
 """
@@ -35,22 +37,25 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     lines = dict(l.split(" ", 1) for l in out.stdout.strip().splitlines())
-    # every module of the port, the diff kernel's wrapper included
-    assert int(lines["MODULES"]) >= 26
+    # every module of the port: the kernel wrappers, the plant, the episode,
+    # the ensemble and the probes included
+    assert int(lines["MODULES"]) >= 35
     assert lines["LEAKED"] == "[]", lines["LEAKED"]
 
 
 def test_sources_do_not_mention_jax_imports():
     files = list((REPO / "ffmpc_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 27
-    assert REPO / "ffmpc_tpu_torch" / "solver" / "rollout_cuda.py" in files
-    assert REPO / "ffmpc_tpu_torch" / "solver" / "diff_cuda.py" in files
+    assert len(files) >= 36
+    for rel in ("solver/rollout_cuda.py", "solver/diff_cuda.py", "sim/device_plant.py",
+                "run/ensemble.py", "tools/probe_mosaic2.py"):
+        assert REPO / "ffmpc_tpu_torch" / rel in files, rel
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()
             assert not s.startswith(("import jax", "from jax", "import ffmpc_tpu ",
                                      "from ffmpc_tpu ", "from ffmpc_tpu.",
-                                     "import ffmpc_tpu.")), (f, line)
+                                     "import ffmpc_tpu.", "import mujoco",
+                                     "from mujoco")), (f, line)
 
 
 def _no_card():
@@ -86,6 +91,27 @@ def test_refs_and_solve_entry_points_raise_without_a_card():
         make_batched_solve_fn(model, W, FDDPSettings(), flagship_trajectory(),
                               EpisodeConfig(controller="force_feedback", horizon=3),
                               KEYFRAMES["neutral"])
+
+
+def test_episode_and_ensemble_raise_without_a_card():
+    _no_card()
+    from ffmpc_tpu_torch.core import make_panda_model, KEYFRAMES
+    from ffmpc_tpu_torch.ocp.weights import flagship_weights, flagship_trajectory
+    from ffmpc_tpu_torch.run.batch_runner import make_episode_fn, EpisodeConfig
+    from ffmpc_tpu_torch.run.ensemble import run_ensemble
+    from ffmpc_tpu_torch.sim.device_plant import make_table_params, init_plant_state
+    from ffmpc_tpu_torch.solver.fddp import FDDPSettings
+    model = make_panda_model("plant", device="cpu")
+    table = make_table_params(0.0, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_episode_fn(model, flagship_weights(), FDDPSettings(), flagship_trajectory(),
+                        table, EpisodeConfig(horizon=3), KEYFRAMES["neutral"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_ensemble(batch=2, ticks=1, horizon=3, verbose=False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_table_params(0.0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_plant_state(np.zeros(7))
 
 
 def test_chip_smoke_fails_without_a_card_and_prints_no_result():

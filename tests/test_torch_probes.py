@@ -1,0 +1,242 @@
+"""The probes of ``ffmpc_tpu_torch/tools/`` (counterparts of the TPU probe
+kernels of ``tools/probe_mosaic.py``, ``tools/probe_mosaic2.py`` and
+``tools/probe_dma_roundtrip.py``): each plain version, at float64 on the CPU,
+against what the TPU probe's body computes.
+
+- The stream stages against the JAX composition of each TPU kernel body
+  (``kernel`` stages 1-4, ``kernel5``, ``kernel6``), built from the plain
+  ``jnp`` helpers of ``ffmpc_tpu/solver/backward_pallas.py`` (``_mm``,
+  ``_mmT``, ``_mv``, ``_mvT``, ``_chol``, ``_chol_solve_vec`` / ``_mat``,
+  ``_diag_mask``, ``_masked_spd``, ``_boxqp_channels``) with the TPU
+  probe's own slices, run op by op: 1e-12 of each output's scale, and the
+  same non-finite entries (stage 3 is NaN in every lane on the probe's
+  random knots, whose Quu is indefinite; so stage 3 is also held on
+  ``spd_knots``, where every output is finite).
+- The math ops and the round trip against numpy.
+- The wrappers on CPU tensors run the plain versions and count no launch;
+  the entry points asked for "cuda" raise without a card; the kernels
+  themselves are held against the plain versions on the card (``cuda``
+  marker), as ``chip_smoke.py`` phase ``probes`` does.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from ffmpc_tpu.solver.backward_pallas import (_boxqp_channels, _chol, _chol_solve_mat,
+                                              _chol_solve_vec, _diag_mask, _masked_spd,
+                                              _mm, _mmT, _mv, _mvT)
+from ffmpc_tpu_torch.tools import probe_dma_roundtrip as prt
+from ffmpc_tpu_torch.tools import probe_mosaic as pmath
+from ffmpc_tpu_torch.tools import probe_mosaic2 as pstream
+
+LANES = 16          # a slice of the probe's 128 lanes keeps the op-by-op JAX side quick
+TOL = 1e-12
+
+
+def jax_stage(knots, stage, term=None):
+    """The TPU probe's kernel body for ``stage`` (tools/probe_mosaic2.py),
+    its fori_loop over knots written as a Python loop, on (N, C, Bt) knots in
+    the channel-major layout.  Returns the probe's outputs as numpy."""
+    nx, nu = 21, 7
+    n_knots, _, Bt = knots.shape
+    dtype = knots.dtype
+    acc = jnp.zeros((8, Bt), dtype)
+    big = np.zeros((n_knots, 448, Bt))
+    k_out = np.zeros((n_knots, 152, Bt))
+    kff_out = np.zeros((n_knots, 8, Bt))
+
+    def pad8rows(v):
+        return jnp.concatenate([v, jnp.zeros((8 - v.shape[0],) + v.shape[1:], dtype)])
+
+    if stage == 5:
+        Vxx = jnp.broadcast_to(_diag_mask(nx, dtype), (nx, nx, Bt))
+        Vx = jnp.zeros((nx, Bt), dtype)
+    if stage == 6:
+        base = term[0:nx, :]
+    for t in range(n_knots - 1, -1, -1):
+        scr = knots[t]
+        if stage == 6:
+            Fu = scr[nx * nx:nx * nx + nx * nu, :].reshape(nx, nu, Bt) * 0.1
+            v = _mvT(Fu, scr[0:nx, :] + base)
+            big[t, 0:nx * nx] = scr[0:nx * nx]
+            k_out[t, 0:nu * nx] = scr[0:nu * nx]
+            kff_out[t, 0:nu] = v
+            acc = acc + v[0:1, :] * 0.0 + scr[0:8, :]
+            continue
+        if stage == 5:
+            Fx = scr[0:nx * nx, :].reshape(nx, nx, Bt) * 0.05 + _diag_mask(nx, dtype) * 0.9
+            Fu = scr[nx * nx:nx * nx + nx * nu, :].reshape(nx, nu, Bt) * 0.1
+            Lxx = _diag_mask(nx, dtype) * 0.7
+            W = _mm(Vxx, Fx)
+            U = _mm(Vxx, Fu)
+            Qxx = Lxx + _mmT(Fx, W)
+            Qxu = _mmT(Fx, U)
+            Quu = _mmT(Fu, U) + _diag_mask(nu, dtype)
+            Qx = _mvT(Fx, Vx)
+            Qu = _mvT(Fu, Vx) + scr[8:8 + nu, :]
+            free = (Qu < 1e9).astype(dtype)
+            QxuT = jnp.concatenate([jax.lax.slice_in_dim(Qxu, u, u + 1, axis=1).reshape(
+                1, nx, Bt) for u in range(nu)])
+            Qm = _masked_spd(Quu, free, 1e-9)
+            K = _chol_solve_mat(_chol(Qm), QxuT * free[:, None, :])
+            kff = -_chol_solve_vec(_chol(Qm), Qu * free)
+            Quuk = _mv(Quu, kff)
+            Vx = Qx + _mvT(K, Quuk - 2.0 * Qu)
+            Vxx_new = Qxx - _mm(Qxu, K)
+            Vxx_newT = jnp.concatenate([jax.lax.slice_in_dim(Vxx_new, i, i + 1, axis=1).reshape(
+                1, nx, Bt) for i in range(nx)])
+            Vxx = 0.5 * (Vxx_new + Vxx_newT) + _diag_mask(nx, dtype) * 1e-6
+            big[t, 0:nx * nx] = Vxx.reshape(nx * nx, Bt)
+            continue
+        if stage >= 4:
+            big[t, 0:nx * nx] = scr[0:nx * nx]
+        Fx = scr[0:nx * nx, :].reshape(nx, nx, Bt)
+        Fu = scr[nx * nx:nx * nx + nx * nu, :].reshape(nx, nu, Bt)
+        Lu = scr[1000:1000 + nu, :]
+        if stage in (1, 4):
+            acc = acc + scr[0:8, :]
+            continue
+        Vxx = Fx
+        U = _mm(Vxx, Fu)
+        Quu = _mmT(Fu, U) + _diag_mask(nu, dtype) * 0.5
+        Qu = Lu + _mvT(Fu, _mv(Vxx, scr[8:8 + nx, :]))
+        if stage == 2:
+            acc = acc + pad8rows(Quu[0]) * 0.0 + pad8rows(Qu)
+            continue
+        x, _ = _boxqp_channels(Quu, Qu, -Lu - 5.0, -Lu + 5.0, 4, 1e-9)
+        K = _chol_solve_mat(_chol(Quu + _diag_mask(nu, dtype)), _mm(Vxx, Fu)[0:nu])
+        acc = acc + pad8rows(x) + pad8rows(K[0]) * 0.0
+    out = {"out": np.asarray(Vxx.reshape(nx * nx, Bt)[0:8] if stage == 5 else acc), "big": big}
+    if stage == 6:
+        out.update(k=k_out, kff=kff_out)
+    return out
+
+
+@pytest.fixture(scope="module")
+def stream_inputs():
+    knots, term = pstream.probe_inputs("cpu")
+    return knots[:, :, :LANES].double().contiguous(), term[:, :LANES].double().contiguous()
+
+
+def assert_stage_equals_jax(knots, stage, term):
+    got = pstream.stream_reference(knots, stage, term if stage == 6 else None)
+    want = jax_stage(jnp.asarray(knots.numpy()), stage, jnp.asarray(term.numpy()))
+    assert set(got) == set(want)
+    for name, w in want.items():
+        g = got[name].numpy()
+        assert g.shape == w.shape, name
+        assert np.array_equal(np.isfinite(g), np.isfinite(w)), name
+        fin = np.isfinite(w)
+        scale = max(float(np.abs(w[fin]).max()) if fin.any() else 1.0, 1.0)
+        err = float(np.abs(g[fin] - w[fin]).max()) if fin.any() else 0.0
+        assert err <= TOL * scale, (name, err, scale)
+    return want
+
+
+@pytest.mark.parametrize("stage", pstream.STAGES)
+def test_stream_stage_plain_equals_jax_body(stream_inputs, stage):
+    knots, term = stream_inputs
+    want = assert_stage_equals_jax(knots, stage, term)
+    if stage == 3:
+        assert not np.isfinite(want["out"][:7]).any()
+
+
+def test_stream_stage3_plain_equals_jax_body_on_spd_knots(stream_inputs):
+    """Stage 3's box QP and Cholesky gain solve on finite numbers: with Fx
+    conditioned, Quu is SPD and every output of the JAX body is finite."""
+    knots, term = stream_inputs
+    spd = pstream.spd_knots(knots)
+    assert torch.equal(spd[:, 441:], knots[:, 441:])
+    want = assert_stage_equals_jax(spd, 3, term)
+    assert all(np.isfinite(w).all() for w in want.values())
+    assert np.abs(want["out"][:7]).min() > 0.0
+
+
+def test_stream_wrapper_on_cpu_runs_the_plain_version(stream_inputs):
+    knots, term = stream_inputs
+    n0 = dict(pstream.stream_stage.launches)
+    for stage in (1, 5, 6):
+        got = pstream.stream_stage(knots, stage, term if stage == 6 else None)
+        want = pstream.stream_reference(knots, stage, term if stage == 6 else None)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (stage, k)
+    assert pstream.stream_stage.launches == n0
+    with pytest.raises(ValueError, match="term"):
+        pstream.stream_stage(knots, 6)
+    with pytest.raises(ValueError, match="stage"):
+        pstream.stream_stage(knots, 7)
+    with pytest.raises(ValueError, match="knots"):
+        pstream.stream_stage(knots[:, :500], 1)
+
+
+@pytest.mark.parametrize("op", pmath.OPS)
+def test_math_plain_equals_numpy(op):
+    x = pmath.probe_input("cpu", torch.float64)
+    got = pmath.math_op(x, op).numpy()
+    xn = x.numpy()
+    want = {"sin": np.sin(xn), "cos": np.cos(xn), "sqrt": np.sqrt(np.abs(xn)),
+            "arccos": np.arccos(xn), "arctan2": np.arctan2(xn, 1.0 + xn * xn),
+            "arctan": np.arctan(xn), "exp": np.exp(xn)}[op]
+    np.testing.assert_allclose(got, want, rtol=1e-15, atol=0)
+    assert x.shape == (2, 128)
+    assert float(x.min()) == float(np.float32(-0.9)) and float(x.max()) == float(np.float32(0.9))
+
+
+def test_math_ulp_helpers():
+    """The host reference and the ulp count the gate reads: a float32 value
+    is 0 ulp from itself, a neighbour 1; atan2's second argument is rounded
+    in float32 as the kernel forms it."""
+    a = np.float32([1.0, -2.5, 0.3])
+    assert pmath.ulp_distance(a, a).tolist() == [0, 0, 0]
+    assert pmath.ulp_distance(a, np.nextafter(a, np.float32(np.inf))).tolist() == [1, 1, 1]
+    assert pmath.ulp_distance(np.float32([-0.0]), np.float32([0.0])).tolist() == [0]
+    x32 = pmath.probe_input("cpu").numpy()
+    ref = pmath.host_reference(x32, "arctan2")
+    y32 = (x32 * x32 + np.float32(1)).astype(np.float32)
+    np.testing.assert_array_equal(ref, np.arctan2(x32.astype(np.float64), y32.astype(np.float64)))
+    assert set(pmath.ULP_BOUND) == set(pmath.OPS)
+
+
+def test_backward_probe_inputs_are_the_tpu_probes():
+    """The probe's construction (default_rng(0), its formulas and draw
+    order), and nx other than 21 refused until the kernel is templated."""
+    args = pmath.backward_probe_inputs(device="cpu")
+    rng = np.random.default_rng(0)
+    Fx = np.eye(21, dtype=np.float32) + np.float32(0.05) * rng.normal(size=(128, 4, 21, 21)).astype(np.float32)
+    np.testing.assert_array_equal(args[0].numpy(), Fx)
+    assert [tuple(a.shape) for a in args[:2]] == [(128, 4, 21, 21), (128, 4, 21, 7)]
+    assert float(args[12][0]) == pytest.approx(1e-4)
+    with pytest.raises(ValueError, match="nx=21"):
+        pmath.backward_probe_inputs(nx=14, device="cpu")
+
+
+def test_roundtrip_plain_equals_numpy():
+    knots = prt.probe_inputs("cpu").double()
+    n0 = prt.roundtrip.launches
+    out, acc = prt.roundtrip(knots)
+    assert prt.roundtrip.launches == n0
+    k = knots.numpy()
+    np.testing.assert_array_equal(out.numpy(), 2.0 * k)
+    np.testing.assert_allclose(acc.numpy(), k[:, 0:8].sum(axis=0), rtol=0, atol=1e-14)
+    with pytest.raises(ValueError, match="multiple"):
+        prt.roundtrip(knots[:, :, :200])
+
+
+def test_probe_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the request for 'cuda' is honoured")
+    for fn in (pmath.probe_math, pstream.probe_stream, prt.probe_roundtrip):
+        with pytest.raises(RuntimeError, match="cuda"):
+            fn()
+
+
+@pytest.mark.cuda
+def test_probe_kernels_match_plain_versions_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the probe kernels have no CPU build")
+    assert pmath.probe_math()["ok"]
+    assert pstream.probe_stream()["ok"]
+    assert prt.probe_roundtrip()["ok"]
