@@ -10,7 +10,10 @@ loop on the same three kernels (`make_episode_fn`: the flagship episode at
 E=1 over 240 ticks through first contact, and `run/ensemble.py::
 run_ensemble`, 512 perturbed episodes of 100 ticks), after building every
 CUDA kernel from `ffmpc_tpu_torch/csrc/` and holding each against its plain
-PyTorch version on the card.  Phases: device, build, kernels,
+PyTorch version on the card (the backward sweep also run as launches of 1
+and of 3 problems, timed at B=1, 256 and 1024, its resident blocks an SM and
+ptxas' registers and spills printed: the float32 build must not spill).
+Phases: device, build, kernels,
 small_reference, golden (the framework-free solver fixture), solve, stages
 (where one iteration's time goes), probes (the four probe kernels of
 `csrc/probes.cu` through their entry points `ffmpc_tpu_torch/tools/`),
@@ -25,8 +28,11 @@ knot_diff, and the probes probe_math, probe_stream, probe_stream_io,
 probe_roundtrip), its launches (the solver kernels' on the main path, with
 the closed loop's and the ensemble's beside; the probes' on their entry
 points), its error against the plain version, its time, the plain version's
-time and the card's bound for the same work.  Needs a CUDA device: without
-one it exits non-zero before printing any result.
+time and the card's bound for the same work.  Times are CUDA events around
+back-to-back calls, so for a launch-bound call they are the host's launch
+interval; the math probe and `torch.sin` are also timed as device time (20
+calls captured in one CUDA graph, `ms_device` / `library_ms_device`).  Needs
+a CUDA device: without one it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -53,7 +59,8 @@ from ffmpc_tpu_torch.run.batch_runner import EpisodeConfig, make_batched_solve_f
 from ffmpc_tpu_torch.ocp.weights import ProblemRefs
 from ffmpc_tpu_torch.solver import _cuda_build
 from ffmpc_tpu_torch.solver.backward_cuda import (backward_box,
-                                                  backward_box_reference)
+                                                  backward_box_reference,
+                                                  resident_blocks_per_sm)
 from ffmpc_tpu_torch.solver.diff_cuda import diff_all, diff_reference
 from ffmpc_tpu_torch.solver.fddp import (FDDPSettings, KGAIN_REG, accept_step,
                                          backward_inputs, control_bounds,
@@ -63,6 +70,7 @@ from ffmpc_tpu_torch.solver.rollout_cuda import (pack_knot_consts, rollout,
 
 NX, NU, HORIZON, ITERS, BOXQP_ITERS, N_ALPHAS = 21, 7, 40, 10, 8, 10
 BATCHES = (256, 1024)
+SMALL_BATCHES = (1, 3)     # extra backward-kernel checks and timing at small grids
 FIELDS = ("K", "kff", "qu2", "dg", "dq", "bad", "w_all")
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth and
@@ -198,6 +206,35 @@ def cuda_time_ms(fn, reps=5, rounds=7):
         e1.record()
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1) / reps)
+    return float(np.median(times))
+
+
+def graph_time_ms(fn, n=20, rounds=7):
+    """Device time of one call: `n` calls captured in one CUDA graph, its
+    replay timed with CUDA events and divided by `n`; median of `rounds`.
+    The host's launch cost is left out (the replay is one launch)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / n)
     return float(np.median(times))
 
 
@@ -482,9 +519,10 @@ def phase_kernels():
     checks = []
     failures = []
 
-    def check(label, args):
+    def check(label, args, out_k=None):
         f64 = args[0].dtype == torch.float64
-        out_k = backward_box(*args, boxqp_iters=BOXQP_ITERS)
+        if out_k is None:
+            out_k = backward_box(*args, boxqp_iters=BOXQP_ITERS)
         torch.cuda.synchronize()
         out_r = backward_box_reference(*args, boxqp_iters=BOXQP_ITERS)
         torch.cuda.synchronize()
@@ -536,20 +574,64 @@ def phase_kernels():
             failures.append(label + "/" + rec["dtype"])
         return rec
 
+    def launches_of(k, args):
+        """The batch as consecutive launches of k problems (the last n % k
+        problems left out), outputs concatenated."""
+        n = args[0].shape[0] // k * k
+        outs = [backward_box(*(a[i:i + k] for a in args), boxqp_iters=BOXQP_ITERS)
+                for i in range(0, n, k)]
+        return [a[:n] for a in args], tuple(torch.cat(f) for f in zip(*outs))
+
+    def same_bits(out_small, out_full):
+        n = out_small[0].shape[0]
+        return all(bool(((a == b[:n]) | (torch.isnan(a) & torch.isnan(b[:n]))).all())
+                   for a, b in zip(out_small, out_full))
+
+    # Small grids (B=1 and B=3): the batch run as launches of 1 and of 3
+    # problems.  Each launch's results must equal the whole batch's launch
+    # bit for bit (blocks are independent), and the pooled outputs pass the
+    # same gates as the whole batch: float32's agree_share is a share of
+    # problems, which one launch of 1 or 3 cannot measure (one tie-flipped
+    # problem of 3 is 0.67).
     B = BATCHES[-1]
     for tight in (False, True):
         tag = "bounds_active" if tight else "bounds_inactive"
         for dtype in (torch.float64, torch.float32):
-            check(f"random_{tag}", random_backward_args(B, HORIZON, tight, dtype, 1))
-    main_args = {b: main_path_backward_args(b) for b in BATCHES}
+            args = random_backward_args(B, HORIZON, tight, dtype, 1)
+            check(f"random_{tag}", args)
+            out_full = backward_box(*args, boxqp_iters=BOXQP_ITERS)
+            for k in SMALL_BATCHES:
+                args_k, out_k = launches_of(k, args)
+                rec = check(f"random_{tag}_launches_of_{k}", args_k, out_k)
+                rec["launch_B"] = k
+                rec["same_bits_as_full_batch"] = same_bits(out_k, out_full)
+                if not rec["same_bits_as_full_batch"]:
+                    rec["ok"] = False
+                    failures.append(rec["case"] + "/" + rec["dtype"] + "/bits")
+    main_args = {b: main_path_backward_args(b) for b in (1,) + BATCHES}
     main_rec = check("main_path_first_iteration", main_args[B])
     check("main_path_first_iteration", [a.double() for a in main_args[B]])
+
+    # registers, shared memory and spills as ptxas reports them, and the
+    # residency they allow; the float32 build must not spill
+    usage = {}
+    for rec in ptxas_usage(_cuda_build.build_all().logs["backward_sweep"]):
+        if "backward_sweep_kernel" in rec["function"]:
+            usage["float32" if "IfE" in rec["function"] else "float64"] = rec
+    resident = {"float32": resident_blocks_per_sm(torch.float32),
+                "float64": resident_blocks_per_sm(torch.float64)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    spill32 = (usage.get("float32", {}).get("spill_store_bytes", 1)
+               + usage.get("float32", {}).get("spill_load_bytes", 1))
+    residency = {"ptxas": usage, "resident_blocks_per_sm": resident, "sms": sms,
+                 "resident_problems_float32": resident["float32"] * sms,
+                 "float32_spill_bytes": spill32}
 
     # timings at the main path's shapes and data (float32).  The inputs of
     # one launch (60 MB at B=256, 240 MB at B=1024) exceed the 50 MB L2, so
     # repeated launches find it cold as the solver's launches do.
     timing = {}
-    for b in BATCHES:
+    for b in (1,) + BATCHES:
         args = main_args[b]
         outs = backward_box(*args, boxqp_iters=BOXQP_ITERS)
         ms = cuda_time_ms(lambda: backward_box(*args, boxqp_iters=BOXQP_ITERS))
@@ -562,9 +644,11 @@ def phase_kernels():
                      "bound_ms": max(byte_ms, flop_ms),
                      "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
                      "bytes_ms": byte_ms, "operations_ms": flop_ms}
-    emit({"phase": "kernels", "checks": checks, "timing_float32": timing})
+    emit({"phase": "kernels", "checks": checks, "timing_float32": timing, **residency})
     if failures:
         raise RuntimeError(f"kernel disagrees with its plain version: {failures}")
+    if spill32 != 0:
+        raise RuntimeError(f"backward kernel: the float32 build spills ({usage})")
 
     t = timing[B]
     return {"name": "backward_sweep", "route": "cuda",
@@ -578,7 +662,8 @@ def phase_kernels():
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "shape": {"B": B, "N": HORIZON, "nx": NX, "nu": NU, "dtype": "float32"},
-            "by_batch": {str(b): timing[b] for b in BATCHES}}
+            "by_batch": {str(b): timing[b] for b in (1,) + BATCHES},
+            "resident_blocks_per_sm": resident, "ptxas": usage}
 
 
 def rollout_errors(out_a, out_b):
@@ -1257,6 +1342,62 @@ def bound_record(nbytes, flops):
             "bytes_ms": byte_ms, "operations_ms": flop_ms}
 
 
+def math_probe_times(pmath, x):
+    """Per op, the kernel (`math_op`) and its plain version (the PyTorch op)
+    timed two ways, in turns plain, kernel, kernel, plain: the host's launch
+    interval (`cuda_time_ms`) and the device time (`graph_time_ms`: the
+    ctypes launch runs on the current stream, so a CUDA graph captures it).
+    Returns ({op: times}, the device-time source)."""
+    by_op = {}
+    for op in pmath.OPS:
+        kern = lambda: pmath.math_op(x, op)  # noqa: E731
+        plain = lambda: pmath.math_reference(x, op)  # noqa: E731
+        h = [cuda_time_ms(plain), cuda_time_ms(kern), cuda_time_ms(kern), cuda_time_ms(plain)]
+        d = [graph_time_ms(plain), graph_time_ms(kern), graph_time_ms(kern),
+             graph_time_ms(plain)]
+        by_op[op] = {"ms": (h[1] + h[2]) / 2, "plain_ms": (h[0] + h[3]) / 2,
+                     "ms_device": (d[1] + d[2]) / 2, "plain_ms_device": (d[0] + d[3]) / 2,
+                     "turns_host_ms": h, "turns_device_ms": d}
+    return by_op, "cuda_graph"
+
+
+def math_host_steps_us(pmath, x, n=2000):
+    """Host microseconds a call of each step of `math_op`'s launch path (and
+    of the whole call, and of torch.sin), enqueue only: perf_counter around
+    `n` calls, one synchronize after."""
+    from ffmpc_tpu_torch.solver import _cuda_build
+    from ffmpc_tpu_torch.tools._probe_lib import probe_fn
+    dev = x.device
+    fn = probe_fn("math", 2, 2)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    steps = {
+        "math_op": lambda: pmath.math_op(x, "sin"),
+        "torch.sin": lambda: torch.sin(x),
+        "checks": lambda: (x.dtype != torch.float32, x.is_contiguous(), x.device.type),
+        "empty_like": lambda: torch.empty_like(x),
+        "current_device": torch.cuda.current_device,
+        "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "probe_fn_lookup": lambda: probe_fn("math", 2, 2),
+        "ctypes_launch": lambda: fn(x.data_ptr(), out.data_ptr(), x.numel(), 0, stream),
+        "launch_helper": lambda: _cuda_build.launch("m", fn, dev, x.data_ptr(), out.data_ptr(),
+                                                    x.numel(), 0),
+    }
+    if hasattr(torch._C, "_cuda_getCurrentRawStream"):   # the same handle, no Stream object
+        steps["current_raw_stream"] = lambda: torch._C._cuda_getCurrentRawStream(dev.index)
+    res = {}
+    for name, f in steps.items():
+        for _ in range(50):
+            f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            f()
+        res[name] = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+    return res
+
+
 def phase_probes():
     """The four probe kernels of csrc/probes.cu through their entry points
     (ffmpc_tpu_torch/tools/probe_*.py), each with its own gate: every math op
@@ -1293,9 +1434,7 @@ def phase_probes():
         raise RuntimeError(f"probe kernels not launched: {n_math}, {n_stream}, {n_rt}")
 
     x = pmath.probe_input()
-    by_op = {op: {"ms": cuda_time_ms(lambda: pmath.math_op(x, op)),
-                  "plain_ms": cuda_time_ms(lambda: pmath.math_reference(x, op))}
-             for op in pmath.OPS}
+    by_op, device_source = math_probe_times(pmath, x)
     knots, term = pstream.probe_inputs()
     by_stage = {}
     for st in pstream.STAGES:
@@ -1330,6 +1469,8 @@ def phase_probes():
 
     n_bytes_math = 2 * x.numel() * 4
     sin = by_op["sin"]
+    host_steps = math_host_steps_us(pmath, x)
+    emit({"phase": "probes", "math_host_steps_us": host_steps})
     rt_bytes = 2 * rk.numel() * 4 + 8 * rk.shape[2] * 4
     rt_flops = rk.numel() + 8 * rk.shape[0] * rk.shape[2]
     return [
@@ -1338,10 +1479,15 @@ def phase_probes():
          "max_abs_err": max(r["max_abs_diff_vs_plain32"] for r in res_math["ops"].values()),
          "ms": sin["ms"], "plain_ms": sin["plain_ms"],
          **bound_record(n_bytes_math, x.numel()),
-         "library_ms": sin["plain_ms"], "entry_point": "ffmpc_tpu_torch.tools.probe_mosaic",
-         "note": "times of the sin launch (torch.sin is the one-call library equivalent); "
-                 "every op in by_op; max_ulp in the probes phase",
-         "by_op": by_op},
+         "library_ms": sin["plain_ms"], "ms_device": sin["ms_device"],
+         "library_ms_device": sin["plain_ms_device"], "device_time_source": device_source,
+         "entry_point": "ffmpc_tpu_torch.tools.probe_mosaic",
+         "note": "times of the sin launch (torch.sin is the one-call library equivalent "
+                 "and the plain version); ms / library_ms: the host's launch interval "
+                 "(CUDA events around 5 back-to-back calls); ms_device / library_ms_device: "
+                 "device time (20 calls in one CUDA graph); every op in by_op; "
+                 "max_ulp in the probes phase",
+         "host_steps_us": host_steps, "by_op": by_op},
         stream_entry("probe_stream", (1, 2, 3, 4, 5), "tools/probe_mosaic2.py:202"),
         stream_entry("probe_stream_io", (6,), "tools/probe_mosaic2.py:171"),
         {"name": "probe_roundtrip", "route": "cuda", "source": "ffmpc_tpu_torch/csrc/probes.cu",

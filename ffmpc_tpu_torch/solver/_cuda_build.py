@@ -6,6 +6,10 @@ by a hash of every file under ``csrc/`` (a source and the headers it
 includes) and of the flags, and loaded with ``ctypes``.  The sources are
 compiled in parallel, one ``nvcc`` each.  Nothing is built at import.  A
 failed build raises; there is no fallback.
+
+``bind`` and ``launch`` are every wrapper's launch path: a C function is
+resolved and typed once, and a call costs one ctypes call plus the stream
+lookup.
 """
 
 from __future__ import annotations
@@ -16,7 +20,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Sequence, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
@@ -26,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_bound: Dict[Tuple[Any, str], Any] = {}
 
 
 def _find_nvcc() -> str:
@@ -106,3 +113,30 @@ def load_library(stem: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(paths[stem]))
         _libs[stem] = lib
     return lib
+
+
+def bind(lib, symbol: str, argtypes: Sequence, restype=ctypes.c_int):
+    """``lib.<symbol>`` with ``argtypes`` and ``restype`` set at its first
+    use, cached per (library, symbol): later calls are one dict lookup."""
+    key = (lib, symbol)
+    fn = _bound.get(key)
+    if fn is None:
+        fn = getattr(lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        _bound[key] = fn
+    return fn
+
+
+def launch(name: str, fn, device: torch.device, *args) -> None:
+    """Call ``fn(*args, stream)`` on ``device``'s current stream and raise
+    if the launch was refused (``fn`` returns a cudaError code).  The device
+    is made current only when it is not already, so a tensor on another
+    card still launches on its own device."""
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")

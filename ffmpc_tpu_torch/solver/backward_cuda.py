@@ -27,7 +27,7 @@ import torch
 
 from ..core.smallchol import matvec as _mv
 from .boxqp import boxqp, _masked_solve
-from ._cuda_build import load_library
+from ._cuda_build import bind, launch, load_library
 
 KERNEL_NX, KERNEL_NU = 21, 7      # the shapes the kernel is instantiated for
 
@@ -116,14 +116,27 @@ def backward_box_reference(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, fs_scaled, LxT, LxxT,
             w_all)
 
 
+_ARGTYPES = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 3 + [ctypes.c_double,
+                                                           ctypes.c_void_p]
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
 def _kernel_fn(dtype):
-    lib = load_library("backward_sweep")
-    fn = getattr(lib, {torch.float32: "ffmpc_backward_sweep_f32",
-                       torch.float64: "ffmpc_backward_sweep_f64"}[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 3 + [
-        ctypes.c_double, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return bind(load_library("backward_sweep"), f"ffmpc_backward_sweep_{_SUFFIX[dtype]}",
+                _ARGTYPES)
+
+
+def resident_blocks_per_sm(dtype=torch.float32) -> int:
+    """Blocks of the kernel that one SM holds at once, as launched
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs a card."""
+    fn = bind(load_library("backward_sweep"),
+              f"ffmpc_backward_sweep_occupancy_{_SUFFIX[dtype]}",
+              [ctypes.POINTER(ctypes.c_int)])
+    n = ctypes.c_int(0)
+    err = fn(ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"backward_sweep occupancy query failed: cudaError {err}")
+    return n.value
 
 
 def backward_box(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, fs_scaled, LxT, LxxT, lb, ub,
@@ -139,19 +152,19 @@ def backward_box(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, fs_scaled, LxT, LxxT, lb, ub,
         return backward_box_reference(*args, boxqp_iters=boxqp_iters,
                                       kgain_reg=kgain_reg)
     B, N, nx, nu = _check_args(args)
-    if Fx.device.type != "cuda":
-        raise ValueError(f"backward_box: unsupported device {Fx.device}")
     if (nx, nu) != (KERNEL_NX, KERNEL_NU):
         raise ValueError(
             f"backward_box: the kernel is built for nx={KERNEL_NX}, "
             f"nu={KERNEL_NU}; got nx={nx}, nu={nu}")
-    if Fx.dtype not in (torch.float32, torch.float64):
+    if Fx.dtype not in _SUFFIX:
         raise ValueError(f"backward_box: unsupported dtype {Fx.dtype}")
     if B < 1 or N < 1:
         raise ValueError(f"backward_box: empty batch or horizon (B={B}, N={N})")
     for name, a in zip(_ARG_NAMES, args):
         if not a.is_contiguous():
             raise ValueError(f"backward_box: {name} must be contiguous")
+    if Fx.device.type != "cuda":
+        raise ValueError(f"backward_box: unsupported device {Fx.device}")
 
     dtype, device = Fx.dtype, Fx.device
     K = torch.empty(B, N, nu, nx, dtype=dtype, device=device)
@@ -163,13 +176,9 @@ def backward_box(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, fs_scaled, LxT, LxxT, lb, ub,
     w_all = torch.empty(B, N + 1, nx, dtype=dtype, device=device)
     outs = (K, kff, qu2, dg, dq, bad, w_all)
 
-    fn = _kernel_fn(dtype)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(a.data_ptr() for a in args), *(o.data_ptr() for o in outs),
-                 B, N, int(boxqp_iters), float(kgain_reg), stream)
-    if err != 0:
-        raise RuntimeError(f"backward_sweep kernel launch failed: cudaError {err}")
+    launch("backward_sweep", _kernel_fn(dtype), device,
+           *(a.data_ptr() for a in args), *(o.data_ptr() for o in outs),
+           B, N, int(boxqp_iters), float(kgain_reg))
     backward_box.launches += 1
     return outs
 

@@ -27,7 +27,7 @@ import torch
 
 from ..ocp.action import KnotDeriv, KnotModel
 from ..ocp.weights import ProblemRefs
-from ._cuda_build import load_library
+from ._cuda_build import bind, launch, load_library
 from .rollout_cuda import KERNEL_NU, KERNEL_NX, N_CONSTS, check_refs
 
 
@@ -73,11 +73,9 @@ def _kernel_fn(dtype):
             raise RuntimeError(f"diff kernel: KnotConstants holds {n()} values, "
                                f"the packer writes {N_CONSTS}")
         _consts_len_checked.add(dtype)
-    fn = getattr(lib, f"ffmpc_knot_diff_{suffix}")
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return bind(lib, f"ffmpc_knot_diff_{suffix}",
+                ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+                 + [ctypes.c_int] * 3 + [ctypes.c_void_p]))
 
 
 def diff_all(knot: KnotModel, consts: torch.Tensor, refs_run: ProblemRefs,
@@ -127,13 +125,9 @@ def diff_all(knot: KnotModel, consts: torch.Tensor, refs_run: ProblemRefs,
     refT_p = ptrs6(*(getattr(ref_T, f).data_ptr() for f in ProblemRefs._fields))
     outs_p = (ctypes.c_void_p * 12)(*(a.data_ptr() for a in (*run, *out[1:])))
 
-    fn = _kernel_fn(dtype)
-    with torch.cuda.device(xs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(consts.data_ptr(), N_CONSTS, xs.data_ptr(), us.data_ptr(), refs_p,
-                 refT_p, outs_p, B, N, int(bool(knot.surface)), stream)
-    if err != 0:
-        raise RuntimeError(f"diff kernel launch failed: cudaError {err}")
+    launch("diff", _kernel_fn(dtype), xs.device,
+           consts.data_ptr(), N_CONSTS, xs.data_ptr(), us.data_ptr(), refs_p,
+           refT_p, outs_p, B, N, int(bool(knot.surface)))
     diff_all.launches += 1
     return out
 

@@ -30,7 +30,7 @@ import torch
 from ..ocp.action import (KnotModel, _build_q_soft_barrier, augmented_spec,
                           lpf_coefficients)
 from ..ocp.weights import ProblemRefs
-from ._cuda_build import load_library
+from ._cuda_build import bind, launch, load_library
 
 KERNEL_NX, KERNEL_NU = 21, 7      # the shapes the kernel is instantiated for
 
@@ -241,11 +241,9 @@ def _kernel_fn(dtype):
             raise RuntimeError(f"rollout kernel: KnotConstants holds {n()} values, "
                                f"the packer writes {N_CONSTS}")
         _consts_len_checked.add(dtype)
-    fn = getattr(lib, f"ffmpc_rollout_{suffix}")
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 12
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return bind(lib, f"ffmpc_rollout_{suffix}",
+                ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 12
+                 + [ctypes.c_int] * 4 + [ctypes.c_void_p]))
 
 
 def rollout(knot: KnotModel, consts: torch.Tensor, x0, xs, us, K, kff, fs,
@@ -292,15 +290,11 @@ def rollout(knot: KnotModel, consts: torch.Tensor, x0, xs, us, K, kff, fs,
     refs_p = ptrs(*(getattr(refs_run, f).data_ptr() for f in ProblemRefs._fields))
     refT_p = ptrs(*(getattr(ref_T, f).data_ptr() for f in ProblemRefs._fields))
 
-    fn = _kernel_fn(dtype)
-    with torch.cuda.device(xs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(consts.data_ptr(), N_CONSTS,
-                 *(a.data_ptr() for a in (x0, xs, us, K, kff, fs, feasible)),
-                 refs_p, refT_p, xs_try.data_ptr(), us_try.data_ptr(),
-                 cost_try.data_ptr(), B, N, A, int(bool(knot.surface)), stream)
-    if err != 0:
-        raise RuntimeError(f"rollout kernel launch failed: cudaError {err}")
+    launch("rollout", _kernel_fn(dtype), xs.device,
+           consts.data_ptr(), N_CONSTS,
+           *(a.data_ptr() for a in (x0, xs, us, K, kff, fs, feasible)),
+           refs_p, refT_p, xs_try.data_ptr(), us_try.data_ptr(),
+           cost_try.data_ptr(), B, N, A, int(bool(knot.surface)))
     rollout.launches += 1
     return xs_try, us_try, cost_try
 

@@ -26,7 +26,7 @@ import torch
 
 from .._device import resolve_device
 from ..solver.backward_cuda import KERNEL_NX, backward_box, backward_box_reference
-from ._probe_lib import check_cuda_f32, launch, probe_fn
+from ._probe_lib import launch, probe_fn
 
 OPS = ("sin", "cos", "sqrt", "arccos", "arctan2", "arctan", "exp")
 
@@ -54,17 +54,28 @@ def math_reference(x, op: str):
     return f(x)
 
 
+_OP_INDEX = {op: i for i, op in enumerate(OPS)}
+
+
 def math_op(x, op: str):
     """One op over ``x`` on the kernel (CUDA float32 tensors) or, for a CPU
-    tensor, the plain version.  ``math_op.launches`` counts kernel launches."""
-    if op not in OPS:
+    tensor, the plain version.  ``math_op.launches`` counts kernel launches.
+    The kernel's path is kept to one check each of dtype, contiguity and
+    device, the output's allocation and one ctypes call."""
+    k = _OP_INDEX.get(op)
+    if k is None:
         raise ValueError(f"unknown op {op!r}; one of {OPS}")
     if x.device.type == "cpu":
         return math_reference(x, op)
-    dev = check_cuda_f32("math_op", x=x)
+    if x.dtype != torch.float32:
+        raise ValueError(f"math_op: x has dtype {x.dtype}; the kernel is float32")
+    if not x.is_contiguous():
+        raise ValueError("math_op: x must be contiguous")
+    if x.device.type != "cuda":
+        raise ValueError(f"math_op: x on unsupported device {x.device}")
     out = torch.empty_like(x)
-    launch("probe math", probe_fn("math", 2, 2), dev, x.data_ptr(), out.data_ptr(),
-           x.numel(), OPS.index(op))
+    launch("probe math", probe_fn("math", 2, 2), x.device, x.data_ptr(), out.data_ptr(),
+           x.numel(), k)
     math_op.launches += 1
     return out
 

@@ -17,20 +17,30 @@ against what the TPU probe's body computes.
   the entry points asked for "cuda" raise without a card; the kernels
   themselves are held against the plain versions on the card (``cuda``
   marker), as ``chip_smoke.py`` phase ``probes`` does.
+- ``math_op``'s kernel path, reached without a card through a tensor on the
+  ``meta`` device, raises on what the kernel does not take.
+
+The JAX package is imported where it is installed; on a card's machine
+without it only the ``cuda``-marked test runs
+(``python -m pytest --noconftest tests/test_torch_probes.py -m cuda``).
 """
 
 import numpy as np
-import jax
-import jax.numpy as jnp
 import pytest
 import torch
 
-from ffmpc_tpu.solver.backward_pallas import (_boxqp_channels, _chol, _chol_solve_mat,
-                                              _chol_solve_vec, _diag_mask, _masked_spd,
-                                              _mm, _mmT, _mv, _mvT)
 from ffmpc_tpu_torch.tools import probe_dma_roundtrip as prt
 from ffmpc_tpu_torch.tools import probe_mosaic as pmath
 from ffmpc_tpu_torch.tools import probe_mosaic2 as pstream
+
+try:
+    import jax
+    import jax.numpy as jnp
+    from ffmpc_tpu.solver.backward_pallas import (_boxqp_channels, _chol, _chol_solve_mat,
+                                                  _chol_solve_vec, _diag_mask, _masked_spd,
+                                                  _mm, _mmT, _mv, _mvT)
+except ImportError:
+    jax = None
 
 LANES = 16          # a slice of the probe's 128 lanes keeps the op-by-op JAX side quick
 TOL = 1e-12
@@ -122,6 +132,8 @@ def stream_inputs():
 
 
 def assert_stage_equals_jax(knots, stage, term):
+    if jax is None:
+        pytest.skip("needs the JAX package, the reference of this comparison")
     got = pstream.stream_reference(knots, stage, term if stage == 6 else None)
     want = jax_stage(jnp.asarray(knots.numpy()), stage, jnp.asarray(term.numpy()))
     assert set(got) == set(want)
@@ -223,6 +235,22 @@ def test_roundtrip_plain_equals_numpy():
     np.testing.assert_allclose(acc.numpy(), k[:, 0:8].sum(axis=0), rtol=0, atol=1e-14)
     with pytest.raises(ValueError, match="multiple"):
         prt.roundtrip(knots[:, :, :200])
+
+
+def test_math_op_kernel_path_rejects_what_the_kernel_does_not_take():
+    """The kernel path's one check each of dtype, contiguity and device,
+    reached without a card through tensors on the meta device; an unknown
+    op raises on any device.  Nothing launches."""
+    n0 = pmath.math_op.launches
+    with pytest.raises(ValueError, match="unknown op"):
+        pmath.math_op(pmath.probe_input("cpu"), "tan")
+    with pytest.raises(ValueError, match="dtype"):
+        pmath.math_op(torch.empty(2, 128, dtype=torch.float64, device="meta"), "sin")
+    with pytest.raises(ValueError, match="contiguous"):
+        pmath.math_op(torch.empty(128, 2, device="meta").t(), "sin")
+    with pytest.raises(ValueError, match="unsupported device"):
+        pmath.math_op(torch.empty(2, 128, device="meta"), "sin")
+    assert pmath.math_op.launches == n0
 
 
 def test_probe_entry_points_raise_without_a_card():
