@@ -11,8 +11,9 @@ E=1 over 240 ticks through first contact, and `run/ensemble.py::
 run_ensemble`, 512 perturbed episodes of 100 ticks), after building every
 CUDA kernel from `ffmpc_tpu_torch/csrc/` and holding each against its plain
 PyTorch version on the card (the backward sweep also run as launches of 1
-and of 3 problems, timed at B=1, 256 and 1024, its resident blocks an SM and
-ptxas' registers and spills printed: the float32 build must not spill).
+and of 3 problems; the backward sweep and the knot derivatives timed at
+B=1, 256 and 1024, their resident blocks an SM and ptxas' registers and
+spills printed: neither float32 build may spill).
 Phases: device, build, kernels,
 small_reference, golden (the framework-free solver fixture), solve, stages
 (where one iteration's time goes), probes (the four probe kernels of
@@ -61,7 +62,9 @@ from ffmpc_tpu_torch.solver import _cuda_build
 from ffmpc_tpu_torch.solver.backward_cuda import (backward_box,
                                                   backward_box_reference,
                                                   resident_blocks_per_sm)
-from ffmpc_tpu_torch.solver.diff_cuda import diff_all, diff_reference
+from ffmpc_tpu_torch.solver.diff_cuda import (KNOTS_PER_BLOCK as DIFF_KNOTS_PER_BLOCK,
+                                              diff_all, diff_reference)
+from ffmpc_tpu_torch.solver.diff_cuda import resident_blocks_per_sm as diff_resident_blocks_per_sm
 from ffmpc_tpu_torch.solver.fddp import (FDDPSettings, KGAIN_REG, accept_step,
                                          backward_inputs, control_bounds,
                                          solve as fddp_solve)
@@ -328,23 +331,32 @@ def rollout_bytes(args, outs):
 
 
 def knot_diff_flops(terminal=False):
-    """Operations of one knot's derivatives, counted from the loops of
-    csrc/knot_chain.cuh::knot_diff_one: a Dual<T> multiply counts 4 (three
-    multiplies, one add), a Dual add 2, a Dual times a constant 2; sin, cos,
-    sqrt, acos and each division 1.  The work does not depend on the data."""
+    """Operations of one knot's derivatives, counted from the parts of
+    csrc/knot_chain.cuh (diff_primal's stages, diff_column, diff_lxx_column):
+    each multiply, add and subtract counts 1 (a fused multiply-add 2); sin,
+    cos, sqrt, acos and each division 1.  A tangent pass forms only the
+    links at and after its joint (4 of 7 on average over the directions).
+    The work does not depend on the data."""
+    cross, joint_rot = 9, 18
     rnea = 18 + 707 + 51 + 1042      # gravity seed, forward, tool acceleration, backward
-    primal = (630                      # forward kinematics and tool frame
-              + 2611                   # mass matrix, link by link, armature
-              + rnea                   # bias and drift at a = 0
-              + 84 + 147 + 98          # frame Jacobian, 7x7 Cholesky, one solve
-              + 169 + 191              # contact solve; Euler step, tool velocity, log3
-              + 740)                   # residuals, activations, costs
-    q_pass = 28 + 1638 + 3 * rnea + 252 + 120 + 140   # dual FK, RNEA, Jacobian, log3
-    v_pass = 3 * rnea + 20
-    solves = 14 * 130 + 7 * 116        # implicit-function columns, M^-1 columns
-    assembly = 294 + 3171              # Lx, Lxx over the groups' live columns
-    dynamics = 0 if terminal else 686  # Fx, Fu
-    return float(primal + 7 * q_pass + 7 * v_pass + solves + assembly + dynamics)
+    primal = (14 + 3241 + 84 + 147   # sin/cos, FK with mass matrix, frame Jacobian, Cholesky
+              + rnea                 # bias and drift at a = 0
+              + 2 * 98 + 183 + 35    # two solves, contact solve and acceleration, xnext
+              + rnea - 51            # link states at the acceleration
+              + 191 + 740)           # tool velocity and log3, residuals, activations, costs
+    fwd_link, bwd_link = 104 + joint_rot, 147
+    back_all = 6 * (joint_rot + 2 * 15 + cross + 6) + 7
+    ee_acc = 7 * cross + 30
+    q_pass = (4 * 17 + 3 * 53                    # frame Jacobian's tangent (closed form)
+              + 3 * cross + 90 + 140 + 9         # orientation error's tangent, dR6
+              + 4 * fwd_link + 72 + ee_acc       # RNEA's tangent, forward, joint's own rotation
+              + 4 * bwd_link + 42 + back_all     # backward
+              + 20)                              # g1, h2
+    v_pass = 4 * fwd_link + 12 + ee_acc + 4 * bwd_link + back_all + 3
+    solve = 130                                  # implicit-function column
+    fx_cols = 0 if terminal else 7 * 56 + 7 * 56 + 7 * 28
+    assembly = 294 + 756 + 1155 + 378 + 210      # Lx; Lxx over the groups' live rows
+    return float(primal + 7 * q_pass + 7 * v_pass + 21 * solve + fx_cols + assembly)
 
 
 def diff_flops(B, N):
@@ -483,16 +495,20 @@ def phase_device():
 
 def ptxas_usage(log):
     """Per compiled kernel: registers, shared memory, stack frame and spill
-    bytes, as `nvcc -Xptxas -v` reports them."""
+    bytes, as `nvcc -Xptxas -v` reports them; `spill_bytes_with_callees`
+    adds the spills of the out-of-line device functions compiled with it."""
     usage = []
     for block in re.split(r"Compiling entry function '", log)[1:]:
         name = block.split("'", 1)[0]
         rec = {"function": name}
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", block)
-        if m:
-            rec.update(stack_frame_bytes=int(m[1]), spill_store_bytes=int(m[2]),
-                       spill_load_bytes=int(m[3]))
+        props = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                           r"(\d+) bytes spill loads", block)
+        if props:
+            rec.update(stack_frame_bytes=int(props[0][0]),
+                       spill_store_bytes=int(props[0][1]),
+                       spill_load_bytes=int(props[0][2]),
+                       spill_bytes_with_callees=sum(int(st) + int(ld)
+                                                    for _, st, ld in props))
         m = re.search(r"Used (\d+) registers", block)
         if m:
             rec["registers"] = int(m[1])
@@ -845,9 +861,11 @@ def phase_diff_kernel():
     """The knot-derivative kernel against its plain version on the card at
     N=40, B=1024, running and terminal knots: seeded inputs and the main
     path's own first-iteration inputs, float64 and float32, and the
-    free-space instantiation on the seeded inputs at float64; then its time
-    against the plain version's at both batch sizes.  Returns the knot_diff
-    entry of the `kernels` line."""
+    free-space instantiation on the seeded inputs at float64; then ptxas'
+    registers, stack and spills (the float32 build must not spill), the
+    resident blocks an SM and the waves they make, and its time against the
+    plain version's at B=1, 256 and 1024.  Returns the knot_diff entry of the
+    `kernels` line."""
     B = BATCHES[-1]
     W = flagship_weights()
     model64 = flagship(torch.float64)[0]
@@ -929,8 +947,29 @@ def phase_diff_kernel():
         if dtype == torch.float32:
             main_rec = rec
 
+    # registers, stack and spills as ptxas reports them, and the residency
+    # they and the shared memory allow; the float32 build must not spill
+    usage = {}
+    for rec in ptxas_usage(_cuda_build.build_all().logs["knot_diff"]):
+        if "knot_diff_kernel" in rec["function"]:
+            key = ("float32" if "IfL" in rec["function"] else "float64") + (
+                "_contact" if "Lb1E" in rec["function"] else "_free")
+            usage[key] = rec
+    resident = {"float32": diff_resident_blocks_per_sm(torch.float32),
+                "float64": diff_resident_blocks_per_sm(torch.float64)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    spill32 = sum(usage.get(k, {}).get("spill_bytes_with_callees", 1)
+                  for k in ("float32_contact", "float32_free"))
+    blocks = {b: -(-b * HORIZON // DIFF_KNOTS_PER_BLOCK) + -(-b // DIFF_KNOTS_PER_BLOCK)
+              for b in (1,) + BATCHES}
+    residency = {"ptxas": usage, "resident_blocks_per_sm": resident, "sms": sms,
+                 "blocks": blocks,
+                 "waves_float32": {b: n / (resident["float32"] * sms)
+                                   for b, n in blocks.items()},
+                 "float32_spill_bytes": spill32}
+
     timing = {}
-    for b in BATCHES:
+    for b in (1,) + BATCHES:
         knot, consts, (xs, us, refs_run, ref_T) = main_path_diff_args(b)
         out = diff_all(knot, consts, refs_run, ref_T, xs, us)
         ms = cuda_time_ms(lambda: diff_all(knot, consts, refs_run, ref_T, xs, us))
@@ -943,9 +982,11 @@ def phase_diff_kernel():
                      "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
                      "bytes_ms": byte_ms, "operations_ms": flop_ms}
     emit({"phase": "kernels", "kernel": "knot_diff", "checks": checks,
-          "timing_float32": timing})
+          "timing_float32": timing, **residency})
     if failures:
         raise RuntimeError(f"diff kernel disagrees with its plain version: {failures}")
+    if spill32 != 0:
+        raise RuntimeError(f"knot_diff kernel: the float32 build spills ({usage})")
     t = timing[B]
     return {"name": "knot_diff", "route": "cuda",
             "source": "ffmpc_tpu_torch/csrc/knot_diff.cu",
@@ -959,7 +1000,9 @@ def phase_diff_kernel():
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "shape": {"B": B, "N": HORIZON, "nx": NX, "nu": NU, "dtype": "float32"},
-            "by_batch": {str(b): timing[b] for b in BATCHES}}
+            "by_batch": {str(b): timing[b] for b in (1,) + BATCHES},
+            "resident_blocks_per_sm": resident, "ptxas": usage,
+            "waves_float32": residency["waves_float32"][B]}
 
 
 def assert_result_ok(res, B, N):

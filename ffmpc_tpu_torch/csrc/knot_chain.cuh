@@ -760,22 +760,48 @@ FFMPC_HD void rollout_one(const KnotConstants<T>& C, const RolloutArgs<T>& a,
 // the knot's derivatives (ocp/action.py diff / term_diff)
 // ---------------------------------------------------------------------------
 
-// A loop the compiler must not unroll: its body (a dual-number pass through
-// the chain) is emitted once.
-#if defined(__CUDACC__)
-#define FFMPC_NO_UNROLL _Pragma("unroll 1")
-#else
-#define FFMPC_NO_UNROLL
-#endif
-
-// A function kept out of line on the device.  knot_diff_one is: inlined into
-// its kernel, nvcc 12.8 at -O1 to -O3 computed wrong derivative columns on
-// the card (right with -G and in host builds, the same wrong numbers with
-// every loop unrolled); out of line it is right and as fast (PERF.md).
+// A function kept out of line on the device.  The derivative parts are: the
+// single-thread body of the first version of this pass, inlined into its
+// kernel, came out of nvcc 12.8 at -O1 to -O3 computing wrong derivative
+// columns on the card (right with -G and in host builds, the same wrong
+// numbers with every loop unrolled); out of line it was right and as fast
+// (PERF.md).  The fault was avoided, not understood, so the parts that
+// replaced that body stay out of line.
 #if defined(__CUDACC__)
 #define FFMPC_HD_OUTLINED __host__ __device__ __noinline__
 #else
 #define FFMPC_HD_OUTLINED inline
+#endif
+
+// Cycles of block 0's thread 0 per phase of the derivative pass, summed over
+// the knots it runs (a build for measurement only, -DFFMPC_DIFF_PHASE_CLOCK;
+// see tools/diff_phase_split.py): loads and primal chain, q-passes, v-passes,
+// control columns, Fx/Fu stores, residuals and cost, Lx/Lxx assembly and
+// stores.
+#if defined(FFMPC_DIFF_PHASE_CLOCK) && defined(__CUDACC__)
+constexpr int kDiffPhases = 7;
+__device__ unsigned long long g_diff_phase_cycles[kDiffPhases];
+__device__ long long g_diff_phase_t0;
+#if defined(__CUDA_ARCH__)
+#define FFMPC_DIFF_PHASE_START()                                 \
+  do {                                                           \
+    if (blockIdx.x == 0 && threadIdx.x == 0) ffmpc::g_diff_phase_t0 = clock64(); \
+  } while (0)
+#define FFMPC_DIFF_PHASE_MARK(k)                                              \
+  do {                                                                        \
+    if (blockIdx.x == 0 && threadIdx.x == 0) {                                \
+      const long long now = clock64();                                        \
+      ffmpc::g_diff_phase_cycles[k] += (unsigned long long)(now - ffmpc::g_diff_phase_t0); \
+      ffmpc::g_diff_phase_t0 = now;                                           \
+    }                                                                         \
+  } while (0)
+#else
+#define FFMPC_DIFF_PHASE_START()
+#define FFMPC_DIFF_PHASE_MARK(k)
+#endif
+#else
+#define FFMPC_DIFF_PHASE_START()
+#define FFMPC_DIFF_PHASE_MARK(k)
 #endif
 
 // One residual row's activation gradient and diagonal Hessian times the
@@ -855,97 +881,478 @@ FFMPC_HD void implicit_column(const T (&L)[kNQ][kNQ], const T (&Jc)[kNQ],
   for (int i = 0; i < kNQ; ++i) da[i] = SURFACE ? -mg[i] + Minv_Jt[i] * df : -mg[i];
 }
 
-// Where one knot's derivatives go: row-major blocks of the solver's
-// batch-leading arrays.  At the terminal knot only cost, Lx and Lxx exist.
-template <typename T>
-struct KnotDiffOut {
-  T* xnext;  // 21
-  T* cost;   // 1
-  T* Fx;     // 21 x 21
-  T* Fu;     // 21 x 7
-  T* Lx;     // 21
-  T* Lu;     // 7
-  T* Lxx;    // 21 x 21
-  T* Lxu;    // 21 x 7
-  T* Luu;    // 7 x 7
+// The derivative pass in three parts, over one knot's record (ocp/action.py
+// diff, or term_diff at the terminal knot: w = 0, only terms flagged
+// terminal, no w terms; the inner terms keep their dt scale).  The
+// formulation of ocp/channel_diff.py::make_channel_diff:
+//  - diff_primal: the primal chain once (FK with mass matrix, RNEA at a = 0
+//    for the bias and the contact drift, Cholesky, the damped contact solve,
+//    RNEA again at the resulting acceleration, link by link), xnext, and the
+//    residuals with their activations: the cost, and the
+//    gradients and diagonal Hessians of the identity terms (gy, hy, gu, hu)
+//    and of the Jacobian groups shared by residuals that ride the same rows
+//    (orientation on q, frame velocity on (q, v), position on q, the force
+//    on all of y);
+//  - diff_column: one column c of the 21 columns of (y, w), each ONE
+//    first-order pass followed by its column of the implicit-function solves
+//    against the factored M and the Schur complement S = Jc M^-1 Jc^T + c:
+//      c < 7, the q-direction c: the tangents of FK (in closed form, from
+//        the link frames) and of RNEA at the fixed acceleration (and force)
+//        give g1 = rnea(q, v, acc) - Jc^T f and h2 = ee_acc_z + kp gap +
+//        kd Jc v (ee_acc_z = Jc a + gamma needs no nested tangent), and the
+//        tool's orientation error and velocity;
+//      7 <= c < 14, the v-direction c - 7: RNEA's tangent alone;
+//      14 <= c, the control column j = c - 14: g1 = -e_j, h2 = 0 (also at
+//        the terminal knot, whose force row depends on the torque state);
+//    the tangents only: the primal values they multiply (the link frames,
+//    and RNEA's link states at the knot's acceleration) are the primal
+//    part's, read from the record;
+//    then df = (Jc M^-1 g1 - h2) / S, da = -M^-1 g1 + M^-1 Jc^T df, and,
+//    running, column c of Fx's rows 0-13 (semi-implicit Euler lifted by the
+//    torque filter: Fy = [[Fx_in, Fu_in], [0, alpha I]], Fw = [[0], [beta I]]);
+//  - diff_lxx_column: column c of the Gauss-Newton Hessian over the groups'
+//    live rows (the upper part a <= c, written to both triangles, so Lxx is
+//    exactly symmetric) and Lx[c].  Lxu is zero: only w terms have a
+//    w-Jacobian, and none of them a y-Jacobian.
+// The columns need only the primal part's record, and the assembly only the
+// columns' df, d ori / dq and d vel6 / dq, so the 21 columns run in any
+// order, on any threads.
+
+// One knot's record: what diff_primal leaves for the columns and the
+// assembly, and what the columns leave for the assembly.  Value i lives at
+// p[i * S]: S = 32 in the kernel (the 32 knots of a block interleaved in
+// shared memory, so a warp's lanes, one knot each, hit 32 banks), 1 on the
+// host.
+template <typename T, int S>
+struct KnotRecord {
+  T* p;
+  FFMPC_HD T& operator[](int i) const { return p[i * S]; }
 };
 
-// One augmented knot's Gauss-Newton derivatives (ocp/action.py diff, or
-// term_diff where `terminal`: w = 0, only terms flagged terminal, no w terms;
-// the inner terms keep their dt scale).  The formulation of
-// ocp/channel_diff.py::make_channel_diff:
-//  - the primal chain once: FK with mass matrix, RNEA at a = 0 for the bias
-//    and the contact drift, Cholesky, the damped contact solve;
-//  - 7 q-directions and 7 v-directions, each ONE first-order Dual<T> pass:
-//    FK + RNEA at the fixed acceleration (and force) give
-//    g1 = rnea(q, v, acc) - Jc^T f and h2 = ee_acc_z + kp gap + kd Jc v,
-//    whose ee_acc_z = Jc a + gamma needs no nested tangent; the q-pass also
-//    carries the tool orientation error and velocity;
-//  - after each pass, its column of the implicit-function solves against
-//    the factored M and the Schur complement S = Jc M^-1 Jc^T + c:
-//    df/dx = (Jc M^-1 G1 - H2) / S, da/dx = -M^-1 G1 + M^-1 Jc^T df/dx
-//    (G1, H2: the passes' tangents of g1, h2, never stored whole); then
-//    df/dtau = -M^-1 Jc^T / S, da/dtau = M^-1 + M^-1 Jc^T df/dtau;
-//  - the semi-implicit Euler blocks lifted by the torque filter:
-//    Fy = [[Fx_in, Fu_in], [0, alpha I]], Fw = [[0], [beta I]];
-//  - Gauss-Newton assembly with the Jacobian groups shared by residuals that
-//    ride the same rows, over their live columns only: identity terms on the
-//    diagonal, orientation rows on q, frame-velocity rows on (q, v), position
-//    rows on q, the force row on all of y.  Lxu is zero: only w terms have a
-//    w-Jacobian, and none of them a y-Jacobian.
-// Fx, Fu, Lxx and Lxu are written to memory as each entry is final and never
-// held whole.
-template <typename T, bool SURFACE, typename Ref>
-FFMPC_HD_OUTLINED void knot_diff_one(const KnotConstants<T>& C, const Ref& ref, const T (&y)[kNY],
-                            const T (&w)[kNW], bool terminal, const KnotDiffOut<T>& out) {
-  using D = Dual<T>;
-  T q[kNQ], v[kNQ], tau[kNQ], cq[kNQ], sq[kNQ];
-  for (int i = 0; i < kNQ; ++i) {
-    q[i] = y[i];
-    v[i] = y[7 + i];
-    tau[i] = y[14 + i];
-    cq[i] = cos_(q[i]);
-    sq[i] = sin_(q[i]);
-  }
+enum RecordField {
+  kRecV = 0,         // v (7)
+  kRecCq = 7,        // cos q (7)
+  kRecSq = 14,       // sin q (7)
+  kRecL = 21,        // Cholesky factor of M, lower triangle packed by rows (28)
+  kRecMinvJt = 49,   // M^-1 Jc^T (7; 0 in free space)
+  kRecForce = 56,    // contact force (0 in free space)
+  kRecLS = 57,       // 1x1 Cholesky factor of the Schur complement (1 in free space)
+  kRecJp = 58,       // frame Jacobian at the tool origin, 3 x 7 (row 2 is Jc)
+  kRecAxis = 79,     // joint axes, 7 x 3
+  kRecArm = 100,     // tool origin minus joint origins, ee_p - p_j, 7 x 3
+  kRecR6 = 121,      // last link's world rotation, 3 x 3
+  kRecEeR = 130,     // tool rotation, 3 x 3
+  kRecRdes = 139,    // desired tool rotation, 3 x 3
+  kRecW = 148,       // rnea at the knot's acceleration, per link (7 x 3 each):
+  kRecWd = 169,      //   angular velocity, angular acceleration and linear
+  kRecAc = 190,      //   acceleration after the link, and the force and
+  kRecF = 211,       //   moment it transmits
+  kRecN = 232,
+  kRecGOri = 253, kRecHOri = 256,  // group gradients and Hessians: orientation (3)
+  kRecGVel = 259, kRecHVel = 265,  // frame velocity (6)
+  kRecGPos = 271, kRecHPos = 274,  // position (3)
+  kRecGF = 277, kRecHF = 278,      // force (1)
+  kRecGy = 279, kRecHy = 300,      // identity terms on y (21)
+  kRecGu = 321, kRecHu = 328,      // identity terms on w (7)
+  kRecLive = 335,    // 1 where some term weights a group row: ori 3, vel 6, pos 3, force 1
+  kRecCost = 348,
+  kRecLx = 349,      // (21; before the assembly, the primal part's scratch:)
+  kRecBias = 349,    //   bias torques b(q, v) (7)
+  kRecDrift = 356,   //   contact drift gamma (1)
+  kRecAccel = 357,   //   acceleration (7)
+  kRecXnext = 349,   //   then xnext (21)
+  kRecDori = 370,    // d ori / dq, 3 x 7 (the q-columns)
+  kRecDvel = 391,    // d vel6 / dq, 6 x 7 (the q-columns)
+  kRecDf = 433,      // df / dy, df / dw (21)
+  kRecEeP = 454,     // tool origin (3)
+  kRecSize = 457
+};
+constexpr int kLiveOri = 0, kLiveVel = 3, kLivePos = 9, kLiveF = 12;
 
-  // ---- primal chain
+// Row i, column j <= i of the packed lower triangle.
+FFMPC_HD constexpr int packed_lower(int i, int j) { return i * (i + 1) / 2 + j; }
+
+// A loop over the links unrolled in full, so arrays indexed by the link
+// stay in registers; or kept rolled, where every per-link value lives in
+// the record and unrolling would only raise the register pressure.
+#if defined(__CUDACC__)
+#define FFMPC_UNROLL _Pragma("unroll")
+#define FFMPC_ROLLED _Pragma("unroll 1")
+#else
+#define FFMPC_UNROLL
+#define FFMPC_ROLLED
+#endif
+
+// One knot's inputs, staged beside its record before the primal part runs:
+// its state (21), its control (7; 0 at the terminal knot) and its 57
+// reference values in RefView's order, value i at in[i] of a KnotRecord view.
+enum InputField { kInY = 0, kInW = 21, kInRef = 28, kInSize = 85 };
+
+// The references of a knot's staged inputs, read as RefView reads them.
+template <typename T, typename R>
+struct InputRefs {
+  R in;
+  FFMPC_HD T at(int k) const { return in[kInRef + k]; }
+};
+
+// rnea<T, T, false>(q, v, a), the same recursion, with each link's state
+// kept in the record: the angular velocity, angular acceleration and linear
+// acceleration after link i, and the force and moment link i transmits to
+// its parent (the primal values the tangent passes multiply).  cos q, sin q
+// and v are read from the record where they are used, and a from its
+// kRecAccel slots (a = 0 where at_rest), so none is held across the links,
+// and the loops stay rolled.
+template <typename T, typename R>
+FFMPC_HD void rnea_links(const KnotConstants<T>& C, bool at_rest, R rec) {
+  T w[3] = {T(0), T(0), T(0)}, wd[3] = {T(0), T(0), T(0)}, ac[3];
+  for (int r = 0; r < 3; ++r)
+    ac[r] = C.base_rot[0][r] * (-C.gravity[0]) + C.base_rot[1][r] * (-C.gravity[1]) +
+            C.base_rot[2][r] * (-C.gravity[2]);
+  FFMPC_ROLLED
+  for (int i = 0; i < kNQ; ++i) {
+    T Rm[3][3];
+    joint_rot<T, T>(C, i, rec[kRecCq + i], rec[kRecSq + i], Rm);
+    const T qd = rec[kRecV + i];
+    T w_p[3], Rt_wd[3], t0[3], t1[3], t2[3], arg[3];
+    for (int r = 0; r < 3; ++r) {
+      w_p[r] = Rm[0][r] * w[0] + Rm[1][r] * w[1] + Rm[2][r] * w[2];
+      Rt_wd[r] = Rm[0][r] * wd[0] + Rm[1][r] * wd[1] + Rm[2][r] * wd[2];
+    }
+    const T p3[3] = {C.j_pos[i][0], C.j_pos[i][1], C.j_pos[i][2]};
+    cross3<T>(wd, p3, t0);
+    cross3<T>(w, p3, t1);
+    cross3<T>(w, t1, t2);
+    for (int r = 0; r < 3; ++r) arg[r] = ac[r] + t0[r] + t2[r];
+    for (int r = 0; r < 3; ++r)
+      ac[r] = Rm[0][r] * arg[0] + Rm[1][r] * arg[1] + Rm[2][r] * arg[2];
+    wd[0] = Rt_wd[0] + w_p[1] * qd;
+    wd[1] = Rt_wd[1] - w_p[0] * qd;
+    wd[2] = Rt_wd[2] + (at_rest ? T(0) : rec[kRecAccel + i]);
+    w[0] = w_p[0];
+    w[1] = w_p[1];
+    w[2] = w_p[2] + qd;
+    for (int r = 0; r < 3; ++r) {
+      rec[kRecW + i * 3 + r] = w[r];
+      rec[kRecWd + i * 3 + r] = wd[r];
+      rec[kRecAc + i * 3 + r] = ac[r];
+    }
+  }
+  T f[3] = {T(0), T(0), T(0)}, n[3] = {T(0), T(0), T(0)};
+  FFMPC_ROLLED
+  for (int i = kNQ - 1; i >= 0; --i) {
+    T ws[3], wds[3];
+    for (int r = 0; r < 3; ++r) {
+      ws[r] = rec[kRecW + i * 3 + r];
+      wds[r] = rec[kRecWd + i * 3 + r];
+    }
+    const T c[3] = {C.com[i][0], C.com[i][1], C.com[i][2]};
+    T t0[3], t1[3], t2[3], F[3], Iw[3], Nn[3], t3[3], t4[3];
+    cross3<T>(wds, c, t0);
+    cross3<T>(ws, c, t1);
+    cross3<T>(ws, t1, t2);
+    for (int r = 0; r < 3; ++r) F[r] = C.mass[i] * (rec[kRecAc + i * 3 + r] + t0[r] + t2[r]);
+    for (int r = 0; r < 3; ++r) {
+      Iw[r] = ws[0] * C.inertia[i][r][0] + ws[1] * C.inertia[i][r][1] +
+              ws[2] * C.inertia[i][r][2];
+      Nn[r] = wds[0] * C.inertia[i][r][0] + wds[1] * C.inertia[i][r][1] +
+              wds[2] * C.inertia[i][r][2];
+    }
+    cross3<T>(ws, Iw, t3);
+    cross3<T>(c, F, t4);
+    T f_i[3], n_i[3];
+    for (int r = 0; r < 3; ++r) {
+      f_i[r] = F[r] + f[r];
+      n_i[r] = (Nn[r] + t3[r]) + t4[r] + n[r];
+      rec[kRecF + i * 3 + r] = f_i[r];
+      rec[kRecN + i * 3 + r] = n_i[r];
+    }
+    if (i > 0) {
+      T Rm[3][3];
+      joint_rot<T, T>(C, i, rec[kRecCq + i], rec[kRecSq + i], Rm);
+      T fp[3], Rn[3], t5[3];
+      for (int r = 0; r < 3; ++r) {
+        fp[r] = Rm[r][0] * f_i[0] + Rm[r][1] * f_i[1] + Rm[r][2] * f_i[2];
+        Rn[r] = Rm[r][0] * n_i[0] + Rm[r][1] * n_i[1] + Rm[r][2] * n_i[2];
+      }
+      const T pj[3] = {C.j_pos[i][0], C.j_pos[i][1], C.j_pos[i][2]};
+      cross3<T>(pj, fp, t5);
+      for (int r = 0; r < 3; ++r) {
+        n[r] = Rn[r] + t5[r];
+        f[r] = fp[r];
+      }
+    }
+  }
+}
+
+// The tangent of rnea(q, v, acc), and with SURFACE of the tool's z
+// acceleration, along one direction, from the link values rnea_links left:
+// the q-direction d (e < 0; dc, ds the tangents of cos q_d and sin q_d, dR6z
+// that of the last link's rotation's z row) or the v-direction e (d < 0).
+// Only tangents are formed (the dual-number pass of the first version
+// recomputed the primal values in each of the 14 passes); a link before the
+// direction's joint has none of its own, so its local terms are skipped.
+template <typename T, bool SURFACE, typename R>
+FFMPC_HD void rnea_tangent(const KnotConstants<T>& C, R rec, int d, T dc, T ds, int e,
+                           const T (&dR6z)[3], T (&dtau)[kNQ], T& deacc_z) {
+  const int first = d >= 0 ? d : e;
+  T dw[3] = {T(0), T(0), T(0)}, dwd[3] = {T(0), T(0), T(0)}, dac[3] = {T(0), T(0), T(0)};
+  T dws[kNQ][3], dwds[kNQ][3], dacs[kNQ][3];
+  FFMPC_UNROLL
+  for (int i = 0; i < kNQ; ++i) {
+    if (i >= first) {
+      T w[3], wd[3], ac[3];
+      for (int r = 0; r < 3; ++r) {
+        if (i == 0) {
+          w[r] = wd[r] = T(0);
+          ac[r] = C.base_rot[0][r] * (-C.gravity[0]) + C.base_rot[1][r] * (-C.gravity[1]) +
+                  C.base_rot[2][r] * (-C.gravity[2]);
+        } else {
+          w[r] = rec[kRecW + (i - 1) * 3 + r];
+          wd[r] = rec[kRecWd + (i - 1) * 3 + r];
+          ac[r] = rec[kRecAc + (i - 1) * 3 + r];
+        }
+      }
+      T Rm[3][3];
+      joint_rot<T, T>(C, i, rec[kRecCq + i], rec[kRecSq + i], Rm);
+      const T p3[3] = {C.j_pos[i][0], C.j_pos[i][1], C.j_pos[i][2]};
+      T dw_p[3], dRt_wd[3], t1[3], dt0[3], dt1[3], dt2[3], t2a[3], darg[3];
+      for (int r = 0; r < 3; ++r) {
+        dw_p[r] = Rm[0][r] * dw[0] + Rm[1][r] * dw[1] + Rm[2][r] * dw[2];
+        dRt_wd[r] = Rm[0][r] * dwd[0] + Rm[1][r] * dwd[1] + Rm[2][r] * dwd[2];
+      }
+      cross3<T>(w, p3, t1);
+      cross3<T>(dwd, p3, dt0);
+      cross3<T>(dw, p3, dt1);
+      cross3<T>(dw, t1, dt2);
+      cross3<T>(w, dt1, t2a);
+      for (int r = 0; r < 3; ++r) darg[r] = dac[r] + dt0[r] + (dt2[r] + t2a[r]);
+      for (int r = 0; r < 3; ++r)
+        dac[r] = Rm[0][r] * darg[0] + Rm[1][r] * darg[1] + Rm[2][r] * darg[2];
+      if (i == d) {
+        // the joint's own rotation: dR = d joint_rot / dq_d (its z column is constant)
+        T dR[3][2];
+        for (int r = 0; r < 3; ++r) {
+          dR[r][0] = C.j_rot[i][r][0] * dc + C.j_rot[i][r][1] * ds;
+          dR[r][1] = C.j_rot[i][r][1] * dc - C.j_rot[i][r][0] * ds;
+        }
+        T t0[3], t2[3], arg[3];
+        cross3<T>(wd, p3, t0);
+        cross3<T>(w, t1, t2);
+        for (int r = 0; r < 3; ++r) arg[r] = ac[r] + t0[r] + t2[r];
+        for (int r = 0; r < 2; ++r) {
+          dw_p[r] = dw_p[r] + (dR[0][r] * w[0] + dR[1][r] * w[1] + dR[2][r] * w[2]);
+          dRt_wd[r] = dRt_wd[r] + (dR[0][r] * wd[0] + dR[1][r] * wd[1] + dR[2][r] * wd[2]);
+          dac[r] = dac[r] + (dR[0][r] * arg[0] + dR[1][r] * arg[1] + dR[2][r] * arg[2]);
+        }
+      }
+      const T qd = rec[kRecV + i];
+      T w_p0 = T(0), w_p1 = T(0);
+      if (i == e) {
+        w_p0 = Rm[0][0] * w[0] + Rm[1][0] * w[1] + Rm[2][0] * w[2];
+        w_p1 = Rm[0][1] * w[0] + Rm[1][1] * w[1] + Rm[2][1] * w[2];
+      }
+      dwd[0] = dRt_wd[0] + (dw_p[1] * qd + w_p1);
+      dwd[1] = dRt_wd[1] - (dw_p[0] * qd + w_p0);
+      dwd[2] = dRt_wd[2];
+      dw[0] = dw_p[0];
+      dw[1] = dw_p[1];
+      dw[2] = dw_p[2] + ((i == e) ? T(1) : T(0));
+    }
+    for (int r = 0; r < 3; ++r) {
+      dws[i][r] = dw[r];
+      dwds[i][r] = dwd[r];
+      dacs[i][r] = dac[r];
+    }
+  }
+  if constexpr (SURFACE) {
+    // the tool's linear acceleration: a_ee = ac + wd x t + w x (w x t),
+    // ee_acc = R6 a_ee + g; its z row's tangent
+    T w[3], wd[3], ac[3], t1[3], t0[3], t2[3], a_ee[3], dt0[3], dt1[3], dt2[3], t2a[3];
+    const T t[3] = {C.ee_pos[0], C.ee_pos[1], C.ee_pos[2]};
+    for (int r = 0; r < 3; ++r) {
+      w[r] = rec[kRecW + 6 * 3 + r];
+      wd[r] = rec[kRecWd + 6 * 3 + r];
+      ac[r] = rec[kRecAc + 6 * 3 + r];
+    }
+    cross3<T>(w, t, t1);
+    cross3<T>(wd, t, t0);
+    cross3<T>(w, t1, t2);
+    cross3<T>(dwd, t, dt0);
+    cross3<T>(dw, t, dt1);
+    cross3<T>(dw, t1, dt2);
+    cross3<T>(w, dt1, t2a);
+    T z = T(0);
+    for (int r = 0; r < 3; ++r) {
+      a_ee[r] = ac[r] + t0[r] + t2[r];
+      const T da = dac[r] + dt0[r] + (dt2[r] + t2a[r]);
+      z = z + (dR6z[r] * a_ee[r] + rec[kRecR6 + 6 + r] * da);
+    }
+    deacc_z = z;
+  }
+  T df[3] = {T(0), T(0), T(0)}, dn[3] = {T(0), T(0), T(0)};
+  FFMPC_UNROLL
+  for (int i = kNQ - 1; i >= 0; --i) {
+    T df_i[3], dn_i[3];
+    for (int r = 0; r < 3; ++r) {
+      df_i[r] = df[r];
+      dn_i[r] = dn[r];
+    }
+    if (i >= first) {
+      T ws[3];
+      for (int r = 0; r < 3; ++r) ws[r] = rec[kRecW + i * 3 + r];
+      const T c[3] = {C.com[i][0], C.com[i][1], C.com[i][2]};
+      T t1[3], a0[3], a1[3], a2[3], a3[3], dF[3], Iw[3], dIw[3], dNn[3], t3a[3], t3b[3], t4[3];
+      cross3<T>(ws, c, t1);
+      cross3<T>(dwds[i], c, a0);
+      cross3<T>(dws[i], t1, a1);
+      cross3<T>(dws[i], c, a2);
+      cross3<T>(ws, a2, a3);
+      for (int r = 0; r < 3; ++r)
+        dF[r] = C.mass[i] * (dacs[i][r] + a0[r] + (a1[r] + a3[r]));
+      for (int r = 0; r < 3; ++r) {
+        Iw[r] = ws[0] * C.inertia[i][r][0] + ws[1] * C.inertia[i][r][1] +
+                ws[2] * C.inertia[i][r][2];
+        dIw[r] = dws[i][0] * C.inertia[i][r][0] + dws[i][1] * C.inertia[i][r][1] +
+                 dws[i][2] * C.inertia[i][r][2];
+        dNn[r] = dwds[i][0] * C.inertia[i][r][0] + dwds[i][1] * C.inertia[i][r][1] +
+                 dwds[i][2] * C.inertia[i][r][2];
+      }
+      cross3<T>(dws[i], Iw, t3a);
+      cross3<T>(ws, dIw, t3b);
+      cross3<T>(c, dF, t4);
+      for (int r = 0; r < 3; ++r) {
+        df_i[r] = dF[r] + df[r];
+        dn_i[r] = (dNn[r] + (t3a[r] + t3b[r])) + t4[r] + dn[r];
+      }
+    }
+    dtau[i] = dn_i[2] + ((i == e) ? C.damping[i] : T(0));
+    if (i > 0) {
+      T Rm[3][3];
+      joint_rot<T, T>(C, i, rec[kRecCq + i], rec[kRecSq + i], Rm);
+      T dfp[3], dRn[3], t5[3];
+      for (int r = 0; r < 3; ++r) {
+        dfp[r] = Rm[r][0] * df_i[0] + Rm[r][1] * df_i[1] + Rm[r][2] * df_i[2];
+        dRn[r] = Rm[r][0] * dn_i[0] + Rm[r][1] * dn_i[1] + Rm[r][2] * dn_i[2];
+      }
+      if (i == d)
+        for (int r = 0; r < 3; ++r) {
+          const T dR0 = C.j_rot[i][r][0] * dc + C.j_rot[i][r][1] * ds;
+          const T dR1 = C.j_rot[i][r][1] * dc - C.j_rot[i][r][0] * ds;
+          dfp[r] = dfp[r] + (dR0 * rec[kRecF + i * 3 + 0] + dR1 * rec[kRecF + i * 3 + 1]);
+          dRn[r] = dRn[r] + (dR0 * rec[kRecN + i * 3 + 0] + dR1 * rec[kRecN + i * 3 + 1]);
+        }
+      const T pj[3] = {C.j_pos[i][0], C.j_pos[i][1], C.j_pos[i][2]};
+      cross3<T>(pj, dfp, t5);
+      for (int r = 0; r < 3; ++r) {
+        dn[r] = dRn[r] + t5[r];
+        df[r] = dfp[r];
+      }
+    }
+  }
+}
+
+// The primal part of one knot, in out-of-line stages that hand their
+// results on through the record, so no stage holds another's arrays in
+// registers: the link frames and the mass matrix's factor; the bias; the
+// contact solve, acceleration and xnext; RNEA's link states at that
+// acceleration; the residuals with their activations, identity terms and
+// group terms.
+
+// Stage 1: q, v from the state ys; FK with mass matrix, the frame Jacobian
+// and the Cholesky factor of M into the record.
+template <typename T, typename R>
+FFMPC_HD_OUTLINED void primal_frames(const KnotConstants<T>& C, R in, R rec) {
+  T cq[kNQ], sq[kNQ];
+  for (int i = 0; i < kNQ; ++i) {
+    const T q = in[kInY + i];
+    cq[i] = cos_(q);
+    sq[i] = sin_(q);
+    rec[kRecV + i] = in[kInY + 7 + i];
+    rec[kRecCq + i] = cq[i];
+    rec[kRecSq + i] = sq[i];
+  }
   T p[kNQ][3], axis[kNQ][3], ee_R[3][3], ee_p[3], M[kNQ][kNQ], R6[3][3];
   fk_chain<T, T, true>(C, cq, sq, p, axis, ee_R, ee_p, M, R6);
-  T b[kNQ], gam[3];
-  {
-    const T zero[kNQ] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
-    rnea<T, T, SURFACE>(C, cq, sq, v, zero, b, R6, gam);
-  }
-  T Jp[3][kNQ];
   for (int j = 0; j < kNQ; ++j) {
     T r[3] = {ee_p[0] - p[j][0], ee_p[1] - p[j][1], ee_p[2] - p[j][2]};
     T c[3];
     cross3<T>(axis[j], r, c);
-    Jp[0][j] = c[0];
-    Jp[1][j] = c[1];
-    Jp[2][j] = c[2];
+    for (int a = 0; a < 3; ++a) {
+      rec[kRecArm + j * 3 + a] = r[a];
+      rec[kRecAxis + j * 3 + a] = axis[j][a];
+      rec[kRecJp + a * kNQ + j] = c[a];
+    }
   }
-  T L[kNQ][kNQ], Minv_tau[kNQ], acc[kNQ];
+  for (int k = 0; k < 9; ++k) {
+    rec[kRecR6 + k] = R6[k / 3][k % 3];
+    rec[kRecEeR + k] = ee_R[k / 3][k % 3];
+  }
+  for (int a = 0; a < 3; ++a) rec[kRecEeP + a] = ee_p[a];
+  T L[kNQ][kNQ];
   chol_factor<T, kNQ>(M, L);
+  for (int i = 0; i < kNQ; ++i)
+    for (int j = 0; j <= i; ++j) rec[kRecL + packed_lower(i, j)] = L[i][j];
+}
+
+// Stage 2: RNEA at a = 0 for the bias and the contact drift, into the
+// record's Lx slots (free until the assembly): kRecBias (7) and kRecDrift.
+// rnea_links forms it, keeping each link's state in the record rather than
+// in registers (stage 4 overwrites them with the states at the
+// acceleration); b_i = n_i,z + armature_i 0 + damping_i v_i and the drift
+// gamma = (R6 (ac + wd x t + w x (w x t)) + g)_z at the last link, as rnea
+// with EE_ACC forms them.
+template <typename T, bool SURFACE, typename R>
+FFMPC_HD_OUTLINED void primal_bias(const KnotConstants<T>& C, R rec) {
+  rnea_links<T>(C, true, rec);
+  for (int i = 0; i < kNQ; ++i)
+    rec[kRecBias + i] =
+        rec[kRecN + i * 3 + 2] + C.armature[i] * T(0) + C.damping[i] * rec[kRecV + i];
+  T drift = T(0);
+  if constexpr (SURFACE) {
+    T w[3], wd[3], t0[3], t1[3], t2[3];
+    const T t[3] = {C.ee_pos[0], C.ee_pos[1], C.ee_pos[2]};
+    for (int r = 0; r < 3; ++r) {
+      w[r] = rec[kRecW + 6 * 3 + r];
+      wd[r] = rec[kRecWd + 6 * 3 + r];
+    }
+    cross3<T>(wd, t, t0);
+    cross3<T>(w, t, t1);
+    cross3<T>(w, t1, t2);
+    T a_ee[3];
+    for (int r = 0; r < 3; ++r) a_ee[r] = rec[kRecAc + 6 * 3 + r] + t0[r] + t2[r];
+    drift = rec[kRecR6 + 6] * a_ee[0] + rec[kRecR6 + 7] * a_ee[1] + rec[kRecR6 + 8] * a_ee[2] +
+            C.gravity[2];
+  }
+  rec[kRecDrift] = drift;
+}
+
+// Stage 3: the damped contact solve and the acceleration (into the Lx
+// slots, kRecAccel).
+template <typename T, bool SURFACE, typename R>
+FFMPC_HD_OUTLINED void primal_contact(const KnotConstants<T>& C, R in, R rec) {
+  const InputRefs<T, R> ref{in};
+  T L[kNQ][kNQ], Minv_tau[kNQ], acc[kNQ];
+  for (int i = 0; i < kNQ; ++i)
+    for (int j = 0; j < kNQ; ++j) L[i][j] = j <= i ? rec[kRecL + packed_lower(i, j)] : T(0);
   {
     T rhs[kNQ];
-    for (int i = 0; i < kNQ; ++i) rhs[i] = tau[i] - b[i];
+    for (int i = 0; i < kNQ; ++i) rhs[i] = in[kInY + 14 + i] - rec[kRecBias + i];
     chol_solve<T, kNQ>(L, rhs, Minv_tau);
   }
-  T force = T(0), LS = T(1), gap = T(0), Minv_Jt[kNQ];
+  T force = T(0), LS = T(1), Minv_Jt[kNQ];
   if constexpr (SURFACE) {
     T Jc[kNQ];
-    for (int j = 0; j < kNQ; ++j) Jc[j] = Jp[2][j];
+    for (int j = 0; j < kNQ; ++j) Jc[j] = rec[kRecJp + 2 * kNQ + j];
     chol_solve<T, kNQ>(L, Jc, Minv_Jt);
     T vel_c = T(0), S_ = T(0), JMt = T(0);
     for (int j = 0; j < kNQ; ++j) {
-      vel_c = vel_c + Jc[j] * v[j];
+      vel_c = vel_c + Jc[j] * rec[kRecV + j];
       S_ = S_ + Jc[j] * Minv_Jt[j];
       JMt = JMt + Jc[j] * Minv_tau[j];
     }
     S_ = S_ + C.damping_c;
-    gap = ee_p[2] - (ref.at(2) - C.z_press);
-    const T a_des = (-gam[2] - C.kp * gap) - C.kd * vel_c;
+    const T gap = rec[kRecEeP + 2] - (ref.at(2) - C.z_press);
+    const T a_des = (-rec[kRecDrift] - C.kp * gap) - C.kd * vel_c;
     LS = S_ / sqrt_(S_);  // 1x1 Cholesky factor, as chol_factor gives it
     force = ((a_des - JMt) / LS) / LS;
     for (int i = 0; i < kNQ; ++i) acc[i] = Minv_tau[i] + Minv_Jt[i] * force;
@@ -955,159 +1362,44 @@ FFMPC_HD_OUTLINED void knot_diff_one(const KnotConstants<T>& C, const Ref& ref, 
       Minv_Jt[i] = T(0);
     }
   }
-  if (!terminal)
-    for (int i = 0; i < kNQ; ++i) {
-      const T vn = v[i] + C.dt * acc[i];
-      out.xnext[7 + i] = vn;
-      out.xnext[i] = q[i] + C.dt * vn;
-      out.xnext[14 + i] = C.lpf_alpha * tau[i] + C.lpf_beta * w[i];
-    }
-  T vel6[6];
-  for (int a = 0; a < 3; ++a) {
-    T lin = T(0), ang = T(0);
-    for (int j = 0; j < kNQ; ++j) {
-      lin = lin + Jp[a][j] * v[j];
-      ang = ang + axis[j][a] * v[j];
-    }
-    vel6[a] = lin;
-    vel6[3 + a] = ang;
+  for (int i = 0; i < kNQ; ++i) {
+    rec[kRecMinvJt + i] = Minv_Jt[i];
+    rec[kRecAccel + i] = acc[i];
   }
-  T ori[3];
-  {
-    T Rrel[3][3];
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j)
-        Rrel[i][j] = ref.at(27 + 0 * 3 + i) * ee_R[0][j] + ref.at(27 + 1 * 3 + i) * ee_R[1][j] +
-                     ref.at(27 + 2 * 3 + i) * ee_R[2][j];
-    log3<T>(Rrel, ori);
-  }
+  rec[kRecForce] = force;
+  rec[kRecLS] = LS;
+}
 
-  // ---- tangent passes, each one direction of (q, v), each followed at once
-  // by its implicit-function column: da/dx, df/dx.  The q-pass also gives
-  // d ori / dq and d vel6 / dq.
-  T da_dx[kNQ][14], df_dx[14], dori[3][kNQ], dvel[6][kNQ];
-  FFMPC_NO_UNROLL
-  for (int d = 0; d < kNQ; ++d) {
-    D cqd[kNQ], sqd[kNQ], vd[kNQ];
-    for (int i = 0; i < kNQ; ++i) {
-      const D qi(q[i], i == d ? T(1) : T(0));
-      cqd[i] = cos_(qi);
-      sqd[i] = sin_(qi);
-      vd[i] = D(v[i]);
-    }
-    D pd[kNQ][3], axd[kNQ][3], eeRd[3][3], eepd[3], Md[kNQ][kNQ], R6d[3][3];
-    fk_chain<D, T, false>(C, cqd, sqd, pd, axd, eeRd, eepd, Md, R6d);
-    D taur[kNQ], eacc[3];
-    rnea<D, T, SURFACE>(C, cqd, sqd, vd, acc, taur, R6d, eacc);
-    D Jpd[3][kNQ];
-    for (int j = 0; j < kNQ; ++j) {
-      D r[3] = {eepd[0] - pd[j][0], eepd[1] - pd[j][1], eepd[2] - pd[j][2]};
-      D c[3];
-      cross3<D>(axd[j], r, c);
-      Jpd[0][j] = c[0];
-      Jpd[1][j] = c[1];
-      Jpd[2][j] = c[2];
-    }
-    T g1[kNQ], h2 = T(0), da[kNQ], dfx;
-    for (int i = 0; i < kNQ; ++i)
-      g1[i] = SURFACE ? taur[i].d - Jpd[2][i].d * force : taur[i].d;
-    if constexpr (SURFACE) {
-      T jv = T(0);
-      for (int j = 0; j < kNQ; ++j) jv = jv + Jpd[2][j].d * v[j];
-      h2 = (eacc[2].d + C.kp * eepd[2].d) + C.kd * jv;
-    }
-    implicit_column<T, SURFACE>(L, Jp[2], Minv_Jt, LS, g1, h2, da, dfx);
-    for (int i = 0; i < kNQ; ++i) da_dx[i][d] = da[i];
-    df_dx[d] = dfx;
-    for (int a = 0; a < 3; ++a) {
-      T lin = T(0), ang = T(0);
-      for (int j = 0; j < kNQ; ++j) {
-        lin = lin + Jpd[a][j].d * v[j];
-        ang = ang + axd[j][a].d * v[j];
-      }
-      dvel[a][d] = lin;
-      dvel[3 + a][d] = ang;
-    }
-    D Rrel[3][3], od[3];
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j)
-        Rrel[i][j] = ref.at(27 + 0 * 3 + i) * eeRd[0][j] + ref.at(27 + 1 * 3 + i) * eeRd[1][j] +
-                     ref.at(27 + 2 * 3 + i) * eeRd[2][j];
-    log3<D>(Rrel, od);
-    for (int r = 0; r < 3; ++r) dori[r][d] = od[r].d;
+// Stage 4: RNEA's link states at the acceleration, and xnext (semi-implicit
+// Euler, the torque filter) into the Lx slots, kRecXnext (21; the bias,
+// drift and acceleration are spent by then).
+template <typename T, typename R>
+FFMPC_HD_OUTLINED void primal_links(const KnotConstants<T>& C, R in, R rec) {
+  rnea_links<T>(C, false, rec);
+  T acc[kNQ];  // read whole first: xnext's slots overlap the acceleration's
+  for (int i = 0; i < kNQ; ++i) acc[i] = rec[kRecAccel + i];
+  for (int i = 0; i < kNQ; ++i) {
+    const T vn = rec[kRecV + i] + C.dt * acc[i];
+    rec[kRecXnext + 7 + i] = vn;
+    rec[kRecXnext + i] = in[kInY + i] + C.dt * vn;
+    rec[kRecXnext + 14 + i] = C.lpf_alpha * in[kInY + 14 + i] + C.lpf_beta * in[kInW + i];
   }
-  FFMPC_NO_UNROLL
-  for (int e = 0; e < kNQ; ++e) {
-    D cqd[kNQ], sqd[kNQ], vd[kNQ], R6d[3][3];
-    T jce = T(0);
-    for (int i = 0; i < kNQ; ++i) {
-      cqd[i] = D(cq[i]);
-      sqd[i] = D(sq[i]);
-      vd[i] = D(v[i], i == e ? T(1) : T(0));
-      if (i == e) jce = Jp[2][i];
-    }
-    for (int r = 0; r < 3; ++r)
-      for (int c = 0; c < 3; ++c) R6d[r][c] = D(R6[r][c]);
-    D taur[kNQ], eacc[3];
-    rnea<D, T, SURFACE>(C, cqd, sqd, vd, acc, taur, R6d, eacc);
-    T g1[kNQ], h2 = T(0), da[kNQ], dfx;
-    for (int i = 0; i < kNQ; ++i) g1[i] = taur[i].d;
-    if constexpr (SURFACE) h2 = eacc[2].d + C.kd * jce;
-    implicit_column<T, SURFACE>(L, Jp[2], Minv_Jt, LS, g1, h2, da, dfx);
-    for (int i = 0; i < kNQ; ++i) da_dx[i][7 + e] = da[i];
-    df_dx[7 + e] = dfx;
-  }
+}
 
-  // ---- the control columns: da/dtau, df/dtau (seven small solves, unrolled)
-  T da_du[kNQ][kNQ], df_du[kNQ];
-  for (int j = 0; j < kNQ; ++j) {
-    T ej[kNQ], mj[kNQ], dfu = T(0);
-    for (int i = 0; i < kNQ; ++i) ej[i] = (i == j) ? T(1) : T(0);
-    chol_solve<T, kNQ>(L, ej, mj);
-    if constexpr (SURFACE) {
-      T mjt = T(0);
-      for (int i = 0; i < kNQ; ++i)
-        if (i == j) mjt = Minv_Jt[i];
-      dfu = -((mjt / LS) / LS);
-    }
-    df_du[j] = dfu;
-    for (int i = 0; i < kNQ; ++i) da_du[i][j] = SURFACE ? mj[i] + Minv_Jt[i] * dfu : mj[i];
-  }
-
-  // ---- dynamics Jacobians (running knots)
-  if (!terminal) {
-    const T dt = C.dt, dt2 = C.dt * C.dt;
-    for (int i = 0; i < kNY; ++i)
-      for (int c = 0; c < kNY; ++c) {
-        T val;
-        if (i < 7 && c < 14)
-          val = ((i == c) ? T(1) : T(0)) + ((c == i + 7) ? dt : T(0)) + dt2 * da_dx[i][c];
-        else if (i < 14 && c < 14)
-          val = ((i == c) ? T(1) : T(0)) + dt * da_dx[i - 7][c];
-        else if (i < 7)
-          val = dt2 * da_du[i][c - 14];
-        else if (i < 14)
-          val = dt * da_du[i - 7][c - 14];
-        else
-          val = (i == c) ? C.lpf_alpha : T(0);
-        out.Fx[i * kNY + c] = val;
-      }
-    for (int i = 0; i < kNY; ++i)
-      for (int j = 0; j < kNW; ++j)
-        out.Fu[i * kNW + j] = (i - 14 == j) ? C.lpf_beta : T(0);
-  }
-
-  // ---- residuals, costs and Gauss-Newton assembly, in the spec's order
-  T cost = T(0), gy[kNY], hy[kNY];
-  for (int i = 0; i < kNY; ++i) gy[i] = hy[i] = T(0);
-  T g_ori[3] = {T(0), T(0), T(0)}, h_ori[3] = {T(0), T(0), T(0)};
-  T g_vel[6], h_vel[6], g_pos[3] = {T(0), T(0), T(0)}, h_pos[3] = {T(0), T(0), T(0)};
-  T g_f[1] = {T(0)}, h_f[1] = {T(0)};
-  bool l_ori[3] = {false, false, false}, l_vel[6], l_pos[3] = {false, false, false};
-  bool l_f[1] = {false};
-  for (int i = 0; i < 6; ++i) {
-    g_vel[i] = h_vel[i] = T(0);
-    l_vel[i] = false;
+// Stage 5: the residuals, costs and their activations, in the spec's order
+// within each of two groups of terms.  The terms whose Jacobian is the
+// identity (on y: posture, v_damp, q_soft_limits, tau_reg,
+// tau_soft_limits, y_reg; on w: w_reg, w_soft): their cost into the record,
+// and gy, hy, gu, hu.  They read the inputs only, and also copy the
+// desired rotation into the record for the q-columns.
+template <typename T, typename R>
+FFMPC_HD_OUTLINED void residuals_identity(const KnotConstants<T>& C, R in, bool terminal,
+                                          R rec) {
+  const InputRefs<T, R> ref{in};
+  T y[kNY], cost = T(0), gy[kNY], hy[kNY];
+  for (int i = 0; i < kNY; ++i) {
+    y[i] = in[kInY + i];
+    gy[i] = hy[i] = T(0);
   }
   {
     T r[14];
@@ -1124,18 +1416,85 @@ FFMPC_HD_OUTLINED void knot_diff_one(const KnotConstants<T>& C, const Ref& ref, 
     for (int i = 0; i < 14; ++i) r[i] = y[i] - C.q_soft_ref[i];
     eye_term<0>(C, kQSoft, kRowQSoft, terminal, r, gy, hy, cost);
   }
-  group_term<T, 3>(C, kEeOri, kRowEeOri, terminal, ori, g_ori, h_ori, l_ori, cost);
-  group_term<T, 6>(C, kWDamp, kRowWDamp, terminal, vel6, g_vel, h_vel, l_vel, cost);
   {
-    T r[7];
-    for (int i = 0; i < 7; ++i) r[i] = tau[i] - ref.at(20 + i);
+    T r[7], tau[7];
+    for (int i = 0; i < 7; ++i) {
+      tau[i] = y[14 + i];
+      r[i] = tau[i] - ref.at(20 + i);
+    }
     eye_term<14>(C, kTauReg, kRowTauReg, terminal, r, gy, hy, cost);
     eye_term<14>(C, kTauSoft, kRowTauSoft, terminal, tau, gy, hy, cost);
   }
+  {
+    T r[kNY];
+    for (int i = 0; i < kNY; ++i) r[i] = y[i] - ref.at(36 + i);
+    eye_term<0>(C, kYReg, kRowYReg, terminal, r, gy, hy, cost);
+  }
+  for (int i = 0; i < kNY; ++i) {
+    rec[kRecGy + i] = gy[i];
+    rec[kRecHy + i] = hy[i];
+  }
+  T w[kNW], gu[kNW], hu[kNW];
+  for (int j = 0; j < kNW; ++j) {
+    w[j] = terminal ? T(0) : in[kInW + j];
+    gu[j] = hu[j] = T(0);
+  }
+  if (!terminal) {
+    eye_term<0>(C, kWReg, kRowWReg, false, w, gu, hu, cost);
+    eye_term<0>(C, kWSoft, kRowWSoft, false, w, gu, hu, cost);
+  }
+  for (int j = 0; j < kNW; ++j) {
+    rec[kRecGu + j] = gu[j];
+    rec[kRecHu + j] = hu[j];
+  }
+  rec[kRecCost] = cost;
+  for (int k = 0; k < 9; ++k) rec[kRecRdes + k] = in[kInRef + 27 + k];  // for the q-columns
+}
+
+// Stage 6: the terms riding a shared Jacobian group's rows (orientation,
+// frame velocity, position, force): their cost added to the record's, and
+// the groups' gradients, Hessians and live rows.  They read stage 1's frames
+// and stage 3's force.
+template <typename T, bool SURFACE, typename R>
+FFMPC_HD_OUTLINED void residuals_groups(const KnotConstants<T>& C, R in, bool terminal, R rec) {
+  const InputRefs<T, R> ref{in};
+  T ee_p[3], vel6[6], ori[3];
+  for (int a = 0; a < 3; ++a) ee_p[a] = rec[kRecEeP + a];
+  for (int a = 0; a < 3; ++a) {
+    T lin = T(0), ang = T(0);
+    for (int j = 0; j < kNQ; ++j) {
+      lin = lin + rec[kRecJp + a * kNQ + j] * in[kInY + 7 + j];
+      ang = ang + rec[kRecAxis + j * 3 + a] * in[kInY + 7 + j];
+    }
+    vel6[a] = lin;
+    vel6[3 + a] = ang;
+  }
+  {
+    T Rrel[3][3];
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j)
+        Rrel[i][j] = ref.at(27 + 0 * 3 + i) * rec[kRecEeR + 0 * 3 + j] +
+                     ref.at(27 + 1 * 3 + i) * rec[kRecEeR + 1 * 3 + j] +
+                     ref.at(27 + 2 * 3 + i) * rec[kRecEeR + 2 * 3 + j];
+    log3<T>(Rrel, ori);
+  }
+  T cost = rec[kRecCost];
+  T g_ori[3] = {T(0), T(0), T(0)}, h_ori[3] = {T(0), T(0), T(0)};
+  T g_vel[6], h_vel[6], g_pos[3] = {T(0), T(0), T(0)}, h_pos[3] = {T(0), T(0), T(0)};
+  T g_f[1] = {T(0)}, h_f[1] = {T(0)};
+  bool l_ori[3] = {false, false, false}, l_vel[6], l_pos[3] = {false, false, false};
+  bool l_f[1] = {false};
+  for (int i = 0; i < 6; ++i) {
+    g_vel[i] = h_vel[i] = T(0);
+    l_vel[i] = false;
+  }
+  group_term<T, 3>(C, kEeOri, kRowEeOri, terminal, ori, g_ori, h_ori, l_ori, cost);
+  group_term<T, 6>(C, kWDamp, kRowWDamp, terminal, vel6, g_vel, h_vel, l_vel, cost);
   if constexpr (!SURFACE) {
     T r[3] = {ee_p[0] - ref.at(0), ee_p[1] - ref.at(1), ee_p[2] - ref.at(2)};
     group_term<T, 3>(C, kEePos, kRowEePos, terminal, r, g_pos, h_pos, l_pos, cost);
   } else {
+    const T force = rec[kRecForce];
     {
       T r[3] = {ee_p[0] - ref.at(0), ee_p[1] - ref.at(1), ee_p[2] - ref.at(2)};
       group_term<T, 3>(C, kEeXy, kRowEeXy, terminal, r, g_pos, h_pos, l_pos, cost);
@@ -1159,63 +1518,217 @@ FFMPC_HD_OUTLINED void knot_diff_one(const KnotConstants<T>& C, const Ref& ref, 
       group_term<T, 1>(C, kFnTrack, kRowFnTrack, terminal, r, g_f, h_f, l_f, cost);
     }
   }
-  {
-    T r[kNY];
-    for (int i = 0; i < kNY; ++i) r[i] = y[i] - ref.at(36 + i);
-    eye_term<0>(C, kYReg, kRowYReg, terminal, r, gy, hy, cost);
+  rec[kRecCost] = cost;
+  for (int r = 0; r < 3; ++r) {
+    rec[kRecGOri + r] = g_ori[r];
+    rec[kRecHOri + r] = h_ori[r];
+    rec[kRecGPos + r] = g_pos[r];
+    rec[kRecHPos + r] = h_pos[r];
+    rec[kRecLive + kLiveOri + r] = l_ori[r] ? T(1) : T(0);
+    rec[kRecLive + kLivePos + r] = l_pos[r] ? T(1) : T(0);
   }
-  T gu[kNW], hu[kNW];
-  for (int j = 0; j < kNW; ++j) gu[j] = hu[j] = T(0);
-  if (!terminal) {
-    eye_term<0>(C, kWReg, kRowWReg, false, w, gu, hu, cost);
-    eye_term<0>(C, kWSoft, kRowWSoft, false, w, gu, hu, cost);
+  for (int r = 0; r < 6; ++r) {
+    rec[kRecGVel + r] = g_vel[r];
+    rec[kRecHVel + r] = h_vel[r];
+    rec[kRecLive + kLiveVel + r] = l_vel[r] ? T(1) : T(0);
   }
-  *out.cost = cost;
+  rec[kRecGF] = g_f[0];
+  rec[kRecHF] = h_f[0];
+  rec[kRecLive + kLiveF] = l_f[0] ? T(1) : T(0);
+}
 
-  // Group Jacobians over their live columns; a row no term weights is
-  // zeroed, so it adds exactly nothing.
-  T Jori[3][kNQ], Jvel[6][14], Jpos[3][kNQ], Jf[kNY];
-  for (int r = 0; r < 3; ++r)
-    for (int c = 0; c < kNQ; ++c) {
-      Jori[r][c] = l_ori[r] ? dori[r][c] : T(0);
-      Jpos[r][c] = l_pos[r] ? Jp[r][c] : T(0);
-    }
-  for (int r = 0; r < 6; ++r)
-    for (int c = 0; c < 14; ++c) {
-      const T jv = c < 7 ? dvel[r][c] : (r < 3 ? Jp[r][c - 7] : axis[c - 7][r - 3]);
-      Jvel[r][c] = l_vel[r] ? jv : T(0);
-    }
-  for (int c = 0; c < kNY; ++c)
-    Jf[c] = (SURFACE && l_f[0]) ? (c < 14 ? df_dx[c] : df_du[c - 14]) : T(0);
+// The primal part of one knot from its staged inputs `in`, its stages in
+// turn (the kernel runs the residual stages on another warp, beside the
+// others; see csrc/knot_diff.cu).  Leaves xnext in the record's Lx slots.
+template <typename T, bool SURFACE, typename R>
+FFMPC_HD void diff_primal(const KnotConstants<T>& C, R in, bool terminal, R rec) {
+  primal_frames<T>(C, in, rec);
+  primal_bias<T, SURFACE>(C, rec);
+  primal_contact<T, SURFACE>(C, in, rec);
+  primal_links<T>(C, in, rec);
+  residuals_identity<T>(C, in, terminal, rec);
+  residuals_groups<T, SURFACE>(C, in, terminal, rec);
+}
 
-  for (int c = 0; c < kNY; ++c) {
-    T s = gy[c];
-    if (c < 7)
-      for (int r = 0; r < 3; ++r) s = s + (Jori[r][c] * g_ori[r] + Jpos[r][c] * g_pos[r]);
-    if (c < 14)
-      for (int r = 0; r < 6; ++r) s = s + Jvel[r][c] * g_vel[r];
-    if constexpr (SURFACE) s = s + Jf[c] * g_f[0];
-    out.Lx[c] = s;
-  }
-  for (int a = 0; a < kNY; ++a)
-    for (int c = a; c < kNY; ++c) {
-      T s = (a == c) ? hy[a] : T(0);
-      if (c < 7)
-        for (int r = 0; r < 3; ++r)
-          s = s + (Jori[r][a] * (h_ori[r] * Jori[r][c]) + Jpos[r][a] * (h_pos[r] * Jpos[r][c]));
-      if (c < 14)
-        for (int r = 0; r < 6; ++r) s = s + Jvel[r][a] * (h_vel[r] * Jvel[r][c]);
-      if constexpr (SURFACE) s = s + Jf[a] * (h_f[0] * Jf[c]);
-      out.Lxx[a * kNY + c] = s;
-      out.Lxx[c * kNY + a] = s;
+// Column c (0..20) of one knot: its implicit-function column, its df into
+// the record (and, for a q-column, d ori / dq and d vel6 / dq), and, where fx
+// is given (running knots), column c of the knot's Fx rows 0-13 at
+// fx[row * 21 + c].  The direction c is data, not a template argument, and
+// every branch on it is uniform over the threads that run the same column
+// of different knots.
+template <typename T, bool SURFACE, typename R>
+FFMPC_HD_OUTLINED void diff_column(const KnotConstants<T>& C, R rec, int c, T* fx) {
+  T g1[kNQ], h2 = T(0);
+  if (c < kNQ) {
+    // q-direction d.  The tangents of the link frames have a closed form:
+    // joint d turns every frame after it about its axis a_d through its
+    // origin p_d, so d axis_j = a_d x axis_j for j > d, d ee_p = a_d x r_d
+    // (r_j = ee_p - p_j), d ee_R = [a_d]x ee_R and d R6 = [a_d]x R6; the
+    // frame Jacobian's column j = axis_j x r_j then has the tangent
+    // axis_j x (a_d x r_d) for j <= d and
+    // (a_d x axis_j) x r_j + axis_j x (a_d x r_j) for j > d.
+    const int d = c;
+    T ad[3], ud[3];
+    for (int r = 0; r < 3; ++r) {
+      ad[r] = rec[kRecAxis + d * 3 + r];
+      ud[r] = rec[kRecJp + r * kNQ + d];  // a_d x r_d, the tool origin's tangent
     }
-  if (!terminal) {
-    for (int j = 0; j < kNW; ++j) {
-      out.Lu[j] = gu[j];
-      for (int k = 0; k < kNW; ++k) out.Luu[j * kNW + k] = (j == k) ? hu[j] : T(0);
+    T jz[kNQ], lin[3] = {T(0), T(0), T(0)}, ang[3] = {T(0), T(0), T(0)}, jv = T(0);
+    for (int j = 0; j < kNQ; ++j) {
+      T aj[3], dJ[3];
+      for (int r = 0; r < 3; ++r) aj[r] = rec[kRecAxis + j * 3 + r];
+      const T vj = rec[kRecV + j];
+      if (j <= d) {
+        cross3<T>(aj, ud, dJ);
+      } else {
+        T rj[3], dax[3], e1[3], adr[3], e2[3];
+        for (int r = 0; r < 3; ++r) rj[r] = rec[kRecArm + j * 3 + r];
+        cross3<T>(ad, aj, dax);
+        cross3<T>(dax, rj, e1);
+        cross3<T>(ad, rj, adr);
+        cross3<T>(aj, adr, e2);
+        for (int r = 0; r < 3; ++r) {
+          dJ[r] = e1[r] + e2[r];
+          ang[r] = ang[r] + dax[r] * vj;
+        }
+      }
+      for (int r = 0; r < 3; ++r) lin[r] = lin[r] + dJ[r] * vj;
+      jz[j] = dJ[2];
+      jv = jv + dJ[2] * vj;
     }
-    for (int i = 0; i < kNY * kNW; ++i) out.Lxu[i] = T(0);
+    for (int r = 0; r < 3; ++r) {
+      rec[kRecDvel + r * kNQ + c] = lin[r];
+      rec[kRecDvel + (3 + r) * kNQ + c] = ang[r];
+    }
+    {
+      // orientation error log3(R_des^T ee_R) along d ee_R = [a_d]x ee_R
+      Dual<T> Rrel[3][3], od[3];
+      T dR[3][3];
+      for (int j = 0; j < 3; ++j) {
+        const T col[3] = {rec[kRecEeR + 0 * 3 + j], rec[kRecEeR + 1 * 3 + j],
+                          rec[kRecEeR + 2 * 3 + j]};
+        T dcol[3];
+        cross3<T>(ad, col, dcol);
+        for (int k = 0; k < 3; ++k) dR[k][j] = dcol[k];
+      }
+      for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j) {
+          const T r0 = rec[kRecRdes + 0 * 3 + i], r1 = rec[kRecRdes + 1 * 3 + i],
+                  r2 = rec[kRecRdes + 2 * 3 + i];
+          Rrel[i][j] = Dual<T>(r0 * rec[kRecEeR + 0 * 3 + j] + r1 * rec[kRecEeR + 1 * 3 + j] +
+                                   r2 * rec[kRecEeR + 2 * 3 + j],
+                               r0 * dR[0][j] + r1 * dR[1][j] + r2 * dR[2][j]);
+        }
+      log3<Dual<T>>(Rrel, od);
+      for (int r = 0; r < 3; ++r) rec[kRecDori + r * kNQ + c] = od[r].d;
+    }
+    // RNEA's tangent at the fixed acceleration, cos' = -sin, sin' = cos
+    T dR6z[3], dtau[kNQ], deacc_z = T(0);
+    for (int k = 0; k < 3; ++k)
+      dR6z[k] = ad[0] * rec[kRecR6 + 3 + k] - ad[1] * rec[kRecR6 + k];
+    rnea_tangent<T, SURFACE>(C, rec, d, -rec[kRecSq + d], rec[kRecCq + d], -1, dR6z, dtau,
+                             deacc_z);
+    const T force = rec[kRecForce];
+    for (int i = 0; i < kNQ; ++i) g1[i] = SURFACE ? dtau[i] - jz[i] * force : dtau[i];
+    if constexpr (SURFACE) h2 = (deacc_z + C.kp * ud[2]) + C.kd * jv;
+  } else if (c < 2 * kNQ) {
+    // v-direction e: RNEA's tangent alone
+    const int e = c - kNQ;
+    const T zero3[3] = {T(0), T(0), T(0)};
+    T deacc_z = T(0);
+    rnea_tangent<T, SURFACE>(C, rec, -1, T(0), T(0), e, zero3, g1, deacc_z);
+    if constexpr (SURFACE) h2 = deacc_z + C.kd * rec[kRecJp + 2 * kNQ + e];
+  } else {
+    // control column j: the torque enters the RNEA rows as -e_j
+    for (int i = 0; i < kNQ; ++i) g1[i] = (i == c - 2 * kNQ) ? T(-1) : T(0);
   }
+  T L[kNQ][kNQ], Jc[kNQ], Minv_Jt[kNQ], da[kNQ], df;
+  for (int i = 0; i < kNQ; ++i) {
+    for (int j = 0; j < kNQ; ++j) L[i][j] = j <= i ? rec[kRecL + packed_lower(i, j)] : T(0);
+    Jc[i] = rec[kRecJp + 2 * kNQ + i];
+    Minv_Jt[i] = rec[kRecMinvJt + i];
+  }
+  implicit_column<T, SURFACE>(L, Jc, Minv_Jt, rec[kRecLS], g1, h2, da, df);
+  rec[kRecDf + c] = df;
+  if (fx) {
+    const T dt = C.dt, dt2 = C.dt * C.dt;
+    for (int i = 0; i < kNQ; ++i) {
+      T top = dt2 * da[i], mid = dt * da[i];
+      if (c < 2 * kNQ) {
+        top = ((i == c) ? T(1) : T(0)) + ((c == i + 7) ? dt : T(0)) + top;
+        mid = ((i + 7 == c) ? T(1) : T(0)) + mid;
+      }
+      fx[i * kNY + c] = top;
+      fx[(7 + i) * kNY + c] = mid;
+    }
+  }
+}
+
+// Lx[c] into the record, and column c of Lxx: entries (a, c) for a <= c,
+// each written to lxx[a * 21 + c] and lxx[c * 21 + a].  The group
+// Jacobians' entries are read where some term weights their row and are 0
+// elsewhere, so such a row adds exactly nothing.
+template <typename T, bool SURFACE, typename R>
+FFMPC_HD_OUTLINED void diff_lxx_column(R rec, int c, T* lxx) {
+  bool live[13];
+  for (int r = 0; r < 13; ++r) live[r] = rec[kRecLive + r] != T(0);
+  const bool live_f = SURFACE && live[kLiveF];
+  auto jac_ori = [&](int r, int a) { return live[kLiveOri + r] ? rec[kRecDori + r * kNQ + a] : T(0); };
+  auto jac_pos = [&](int r, int a) { return live[kLivePos + r] ? rec[kRecJp + r * kNQ + a] : T(0); };
+  auto jac_vel = [&](int r, int a) {
+    if (!live[kLiveVel + r]) return T(0);
+    if (a < kNQ) return rec[kRecDvel + r * kNQ + a];
+    return r < 3 ? rec[kRecJp + r * kNQ + (a - kNQ)] : rec[kRecAxis + (a - kNQ) * 3 + (r - 3)];
+  };
+  T s = rec[kRecGy + c];
+  T hori[3] = {T(0), T(0), T(0)}, hpos[3] = {T(0), T(0), T(0)};
+  T hvel[6] = {T(0), T(0), T(0), T(0), T(0), T(0)}, hf = T(0);
+  if (c < kNQ)
+    for (int r = 0; r < 3; ++r) {
+      const T jo = jac_ori(r, c), jp = jac_pos(r, c);
+      s = s + (jo * rec[kRecGOri + r] + jp * rec[kRecGPos + r]);
+      hori[r] = rec[kRecHOri + r] * jo;
+      hpos[r] = rec[kRecHPos + r] * jp;
+    }
+  if (c < 2 * kNQ)
+    for (int r = 0; r < 6; ++r) {
+      const T jv = jac_vel(r, c);
+      s = s + jv * rec[kRecGVel + r];
+      hvel[r] = rec[kRecHVel + r] * jv;
+    }
+  if (live_f) {
+    const T jf = rec[kRecDf + c];
+    s = s + jf * rec[kRecGF];
+    hf = rec[kRecHF] * jf;
+  }
+  rec[kRecLx + c] = s;
+  for (int a = 0; a <= c; ++a) {
+    T h = (a == c) ? rec[kRecHy + a] : T(0);
+    if (c < kNQ)
+      for (int r = 0; r < 3; ++r) h = h + (jac_ori(r, a) * hori[r] + jac_pos(r, a) * hpos[r]);
+    if (c < 2 * kNQ)
+      for (int r = 0; r < 6; ++r) h = h + jac_vel(r, a) * hvel[r];
+    if (live_f) h = h + rec[kRecDf + a] * hf;
+    lxx[a * kNY + c] = h;
+    lxx[c * kNY + a] = h;
+  }
+}
+
+// The entries of a running knot that do not depend on its state, by their
+// flat index e in the knot's block: Fx rows 14-20 (alpha on the diagonal;
+// e counts from row 14) and Fu (beta on the torque rows); and Luu, the
+// diagonal hu of the control terms.  Lxu is zero.
+template <typename T>
+FFMPC_HD T fx_filter_rows(const KnotConstants<T>& C, int e) {
+  return (14 + e / kNY == e % kNY) ? C.lpf_alpha : T(0);
+}
+template <typename T>
+FFMPC_HD T fu_entry(const KnotConstants<T>& C, int e) {
+  return (e / kNW - 14 == e % kNW) ? C.lpf_beta : T(0);
+}
+template <typename T, typename R>
+FFMPC_HD T luu_entry(R rec, int e) {
+  return (e / kNW == e % kNW) ? rec[kRecHu + e / kNW] : T(0);
 }
 
 // Batch-leading arrays of the derivative pass exactly as the solver holds
@@ -1251,27 +1764,54 @@ FFMPC_HD DiffArgs<T> diff_args(const void* xs, const void* us, const void* const
   return a;
 }
 
-// Knot t of problem b: running for t < N, terminal for t == N.
-template <typename T, bool SURFACE>
-FFMPC_HD void diff_knot(const KnotConstants<T>& C, const DiffArgs<T>& a, int b, int t) {
-  const int N = a.N;
-  const bool terminal = t == N;
-  const T* ys = a.xs + ((size_t)b * (N + 1) + t) * kNY;
-  T y[kNY], w[kNW];
-  for (int i = 0; i < kNY; ++i) y[i] = ys[i];
-  const size_t k = (size_t)b * N + t;  // running knot index
-  for (int j = 0; j < kNW; ++j) w[j] = terminal ? T(0) : a.us[k * kNW + j];
-  KnotDiffOut<T> o;
-  if (terminal) {
-    o = {nullptr, a.cost_T + b, nullptr, nullptr, a.LxT + (size_t)b * kNY,
-         nullptr, a.LxxT + (size_t)b * kNY * kNY, nullptr, nullptr};
-  } else {
-    o = {a.xnext + k * kNY, a.cost + k, a.Fx + k * kNY * kNY, a.Fu + k * kNY * kNW,
-         a.Lx + k * kNY, a.Lu + k * kNW, a.Lxx + k * kNY * kNY, a.Lxu + k * kNY * kNW,
-         a.Luu + k * kNW * kNW};
-  }
+// Knot t of problem b's inputs (running for t < N, terminal for t == N)
+// into `in`, one value at a time: the host's staging (the kernel's block
+// stages its 32 knots' with coalesced loads).
+template <typename T, typename R>
+FFMPC_HD void stage_inputs(const DiffArgs<T>& a, int b, int t, R in) {
+  const bool terminal = t == a.N;
+  const size_t k = (size_t)b * a.N + t;  // running knot index
   const RefView<T> ref{terminal ? a.ref_T : a.ref, terminal ? (size_t)b : k};
-  knot_diff_one<T, SURFACE>(C, ref, y, w, terminal, o);
+  for (int i = 0; i < kNY; ++i) in[kInY + i] = a.xs[((size_t)b * (a.N + 1) + t) * kNY + i];
+  for (int j = 0; j < kNW; ++j) in[kInW + j] = terminal ? T(0) : a.us[k * kNW + j];
+  for (int v = 0; v < 57; ++v) in[kInRef + v] = ref.at(v);
+}
+
+// Knot t of problem b on one host thread, every part in turn: the primal
+// part, the columns listed in `columns` (n of them; every column of the knot
+// where columns is null), then every Lxx column and the rest of the
+// outputs.  What the kernel's block does for each of its 32 knots; the
+// tests' g++ build of this header runs it.
+template <typename T, bool SURFACE>
+inline void diff_knot_serial(const KnotConstants<T>& C, const DiffArgs<T>& a, int b, int t,
+                             const int* columns, int n) {
+  T buf[kRecSize] = {}, inputs[kInSize];
+  const KnotRecord<T, 1> rec{buf}, in{inputs};
+  const bool terminal = t == a.N;
+  const size_t k = (size_t)b * a.N + t;
+  stage_inputs<T>(a, b, t, in);
+  diff_primal<T, SURFACE>(C, in, terminal, rec);
+  if (!terminal)
+    for (int i = 0; i < kNY; ++i) a.xnext[k * kNY + i] = rec[kRecXnext + i];
+  T* fx = terminal ? nullptr : a.Fx + k * kNY * kNY;
+  for (int i = 0; i < (columns ? n : kNY); ++i)
+    diff_column<T, SURFACE>(C, rec, columns ? columns[i] : i, fx);
+  T* lxx = terminal ? a.LxxT + (size_t)b * kNY * kNY : a.Lxx + k * kNY * kNY;
+  for (int c = 0; c < kNY; ++c) diff_lxx_column<T, SURFACE>(rec, c, lxx);
+  T* lx = terminal ? a.LxT + (size_t)b * kNY : a.Lx + k * kNY;
+  for (int c = 0; c < kNY; ++c) lx[c] = rec[kRecLx + c];
+  if (terminal) {
+    a.cost_T[b] = rec[kRecCost];
+    return;
+  }
+  a.cost[k] = rec[kRecCost];
+  for (int e = 0; e < 7 * kNY; ++e) fx[14 * kNY + e] = fx_filter_rows(C, e);
+  for (int e = 0; e < kNY * kNW; ++e) {
+    a.Fu[k * kNY * kNW + e] = fu_entry(C, e);
+    a.Lxu[k * kNY * kNW + e] = T(0);
+  }
+  for (int j = 0; j < kNW; ++j) a.Lu[k * kNW + j] = rec[kRecGu + j];
+  for (int e = 0; e < kNW * kNW; ++e) a.Luu[k * kNW * kNW + e] = luu_entry<T>(rec, e);
 }
 
 }  // namespace ffmpc

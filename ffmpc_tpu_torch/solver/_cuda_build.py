@@ -9,7 +9,7 @@ failed build raises; there is no fallback.
 
 ``bind`` and ``launch`` are every wrapper's launch path: a C function is
 resolved and typed once, and a call costs one ctypes call plus the stream
-lookup.
+lookup (``current_stream_handle``, chosen once at import).
 """
 
 from __future__ import annotations
@@ -103,6 +103,33 @@ def build_all() -> BuildResult:
     return BuildResult(paths, logs)
 
 
+def build_variant(source: Path, defines: Sequence[str] = (), tag: str = "variant") -> Path:
+    """The library built from one CUDA source with extra ``-D`` flags (a
+    measurement build, or another revision's source), into ``BUILD_DIR``
+    beside the package's own libraries.  The source's directory is the
+    include path, and every file in it is hashed with the flags, so another
+    revision's ``csrc/`` copy builds against its own headers.  The
+    compiler's output is kept beside the library (``.log``)."""
+    source = Path(source).resolve()
+    flags = (*NVCC_FLAGS, *defines)
+    h = hashlib.sha256(" ".join(flags).encode() + source.name.encode())
+    for f in sorted(p for p in source.parent.iterdir() if p.is_file()):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib = BUILD_DIR / f"lib{tag}_{h.hexdigest()[:16]}.so"
+    if not lib.exists():
+        tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+        out = subprocess.run([_find_nvcc(), *flags, "-I", str(source.parent), "-o", str(tmp),
+                              str(source)], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        if out.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source}:\n{out.stdout}")
+        lib.with_suffix(".log").write_text(out.stdout)
+        os.replace(tmp, lib)
+    return lib
+
+
 def load_library(stem: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<stem>.cu`` (built on first use)."""
     lib = _libs.get(stem)
@@ -128,6 +155,19 @@ def bind(lib, symbol: str, argtypes: Sequence, restype=ctypes.c_int):
     return fn
 
 
+if hasattr(torch._C, "_cuda_getCurrentRawStream"):
+    def current_stream_handle(index: int) -> int:
+        """The ``cudaStream_t`` of device ``index``'s current stream, as
+        ``torch.cuda.current_stream(index).cuda_stream`` gives it, without
+        building a ``torch.cuda.Stream`` (0.15 against 3.1 us a call on the
+        host of an H100, PERF.md)."""
+        return torch._C._cuda_getCurrentRawStream(index)
+else:  # a PyTorch without the private lookup (and every CPU-only build)
+    def current_stream_handle(index: int) -> int:
+        """The ``cudaStream_t`` of device ``index``'s current stream."""
+        return torch.cuda.current_stream(index).cuda_stream
+
+
 def launch(name: str, fn, device: torch.device, *args) -> None:
     """Call ``fn(*args, stream)`` on ``device``'s current stream and raise
     if the launch was refused (``fn`` returns a cudaError code).  The device
@@ -135,8 +175,8 @@ def launch(name: str, fn, device: torch.device, *args) -> None:
     card still launches on its own device."""
     if device.index != torch.cuda.current_device():
         with torch.cuda.device(device):
-            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+            err = fn(*args, current_stream_handle(device.index))
     else:
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        err = fn(*args, current_stream_handle(device.index))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")

@@ -10,7 +10,8 @@ running knots and of its terminal knot:
                         cost_T (B,), LxT (B,nx), LxxT (B,nx,nx))
 
 ``diff_all`` launches the hand-written kernel ``csrc/knot_diff.cu`` (device
-code ``csrc/knot_chain.cuh::knot_diff_one``) for CUDA tensors, or raises, and
+code ``csrc/knot_chain.cuh::diff_primal``, ``diff_column`` and
+``diff_lxx_column``) for CUDA tensors, or raises, and
 uses ``diff_reference`` only for CPU tensors.  ``diff_reference`` is the
 knot's own ``diff`` over the (B, N) running knots and ``term_diff`` over the
 B terminal ones: what the kernel is held against, and what
@@ -60,6 +61,12 @@ def diff_reference(knot: KnotModel, refs_run: ProblemRefs, ref_T: ProblemRefs,
     return KnotDerivs(derivs, cost_T, LxT, LxxT)
 
 
+KNOTS_PER_BLOCK = 32   # csrc/knot_diff.cu: a block's knots, running or terminal
+
+# the C function's arguments: consts, n_consts, xs, us, refs, refs_T, outs,
+# B, N, surface, stream
+ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 _consts_len_checked = set()
 
 
@@ -73,23 +80,30 @@ def _kernel_fn(dtype):
             raise RuntimeError(f"diff kernel: KnotConstants holds {n()} values, "
                                f"the packer writes {N_CONSTS}")
         _consts_len_checked.add(dtype)
-    return bind(lib, f"ffmpc_knot_diff_{suffix}",
-                ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
-                 + [ctypes.c_int] * 3 + [ctypes.c_void_p]))
+    return bind(lib, f"ffmpc_knot_diff_{suffix}", ARGTYPES)
 
 
-def diff_all(knot: KnotModel, consts: torch.Tensor, refs_run: ProblemRefs,
-             ref_T: ProblemRefs, xs, us) -> KnotDerivs:
-    """Derivative pass on the hand-written CUDA kernel (see the module
-    docstring for shapes).  CUDA tensors go to the kernel or raise; only CPU
-    tensors go to ``diff_reference``.  ``consts`` is
-    ``pack_knot_consts(knot.model, knot.W, knot.surface, dtype)``.  Launches
-    on the current stream and does not synchronize.  ``diff_all.launches``
-    counts the kernel launches (a plain integer, incremented here and
-    nowhere else)."""
+def resident_blocks_per_sm(dtype=torch.float32) -> int:
+    """Blocks of the kernel (224 threads, 32 knots each) that one SM holds
+    at once, as launched (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    with its shared memory); needs a card."""
+    suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+    fn = bind(load_library("knot_diff"), f"ffmpc_knot_diff_occupancy_{suffix}",
+              [ctypes.POINTER(ctypes.c_int)])
+    n = ctypes.c_int(0)
+    err = fn(ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"knot_diff occupancy query failed: cudaError {err}")
+    return n.value
+
+
+def kernel_args(knot: KnotModel, consts: torch.Tensor, refs_run: ProblemRefs,
+                ref_T: ProblemRefs, xs, us):
+    """Checks CUDA inputs as the kernel takes them and allocates the outputs.
+    Returns (outputs, the C function's arguments before the stream): what
+    ``diff_all`` launches, and what a measurement build of the kernel
+    (``tools/diff_phase_split.py``) is called with."""
     B, N, nx, nu = _check_args(refs_run, ref_T, xs, us)
-    if xs.device.type == "cpu":
-        return diff_reference(knot, refs_run, ref_T, xs, us)
     if xs.device.type != "cuda":
         raise ValueError(f"diff_all: unsupported device {xs.device}")
     if (nx, nu) != (KERNEL_NX, KERNEL_NU):
@@ -124,10 +138,24 @@ def diff_all(knot: KnotModel, consts: torch.Tensor, refs_run: ProblemRefs,
     refs_p = ptrs6(*(getattr(refs_run, f).data_ptr() for f in ProblemRefs._fields))
     refT_p = ptrs6(*(getattr(ref_T, f).data_ptr() for f in ProblemRefs._fields))
     outs_p = (ctypes.c_void_p * 12)(*(a.data_ptr() for a in (*run, *out[1:])))
+    return out, (consts.data_ptr(), N_CONSTS, xs.data_ptr(), us.data_ptr(), refs_p,
+                 refT_p, outs_p, B, N, int(bool(knot.surface)))
 
-    launch("diff", _kernel_fn(dtype), xs.device,
-           consts.data_ptr(), N_CONSTS, xs.data_ptr(), us.data_ptr(), refs_p,
-           refT_p, outs_p, B, N, int(bool(knot.surface)))
+
+def diff_all(knot: KnotModel, consts: torch.Tensor, refs_run: ProblemRefs,
+             ref_T: ProblemRefs, xs, us) -> KnotDerivs:
+    """Derivative pass on the hand-written CUDA kernel (see the module
+    docstring for shapes).  CUDA tensors go to the kernel or raise; only CPU
+    tensors go to ``diff_reference``.  ``consts`` is
+    ``pack_knot_consts(knot.model, knot.W, knot.surface, dtype)``.  Launches
+    on the current stream and does not synchronize.  ``diff_all.launches``
+    counts the kernel launches (a plain integer, incremented here and
+    nowhere else)."""
+    if xs.device.type == "cpu":
+        _check_args(refs_run, ref_T, xs, us)
+        return diff_reference(knot, refs_run, ref_T, xs, us)
+    out, args = kernel_args(knot, consts, refs_run, ref_T, xs, us)
+    launch("diff", _kernel_fn(xs.dtype), xs.device, *args)
     diff_all.launches += 1
     return out
 

@@ -23,9 +23,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -41,17 +39,8 @@ NX, NU = 21, 7
 def build(source: Path, clock: bool = True) -> Path:
     """The library built from ``source``, with the phase clock or without
     (cached by content and flags)."""
-    flags = (*_cuda_build.NVCC_FLAGS, *(("-DFFMPC_BACKWARD_PHASE_CLOCK",) if clock else ()))
-    h = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    _cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = _cuda_build.BUILD_DIR / f"libbackward_phase_{h}.so"
-    if not lib.exists():
-        out = subprocess.run([_cuda_build._find_nvcc(), *flags, "-I", str(_cuda_build.CSRC_DIR),
-                              "-o", str(lib), str(source)],
-                             capture_output=True, text=True)
-        if out.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{out.stdout}{out.stderr}")
-    return lib
+    return _cuda_build.build_variant(
+        source, ("-DFFMPC_BACKWARD_PHASE_CLOCK",) if clock else (), "backward_phase")
 
 
 def seeded_args(B, N, tight, seed, device="cuda"):

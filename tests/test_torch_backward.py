@@ -240,6 +240,31 @@ def test_bind_resolves_and_types_a_symbol_once():
     assert lib2.lookups == ["ffmpc_a"]
 
 
+@pytest.mark.cuda
+def test_cuda_launch_passes_the_current_streams_handle():
+    """``launch`` takes the stream from ``current_stream_handle`` (the raw
+    lookup where PyTorch has it): the handle
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, on the default
+    stream and under another one, and the one the C function receives."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    seen = []
+
+    def stub(*args):
+        seen.append(args[-1])
+        return 0
+    default = torch.cuda.current_stream(dev).cuda_stream
+    assert _cuda_build.current_stream_handle(dev.index) == default
+    _cuda_build.launch("stub", stub, dev, 1, 2)
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        assert _cuda_build.current_stream_handle(dev.index) == side.cuda_stream
+        assert torch.cuda.current_stream(dev).cuda_stream == side.cuda_stream
+        _cuda_build.launch("stub", stub, dev, 1, 2)
+    assert seen == [default, side.cuda_stream] and side.cuda_stream != default
+
+
 def test_kernel_path_rejects_what_the_kernel_does_not_take():
     """The CUDA path's checks, reached without a card through tensors on the
     meta device: a wrong shape, dtype or a non-contiguous input raises

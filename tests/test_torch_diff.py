@@ -7,40 +7,43 @@ knot-derivative kernel), float64 on the CPU:
   terminal knot, at 1e-12 of each field's scale (the bar of the JAX package's
   ``tests/test_diff_pallas.py``): the same derivatives, summed in another
   order;
-- the kernel's device code (``csrc/knot_chain.cuh::diff_knot``, compiled for
-  the host with g++) == ``diff_reference`` at 1e-11 of scale, running and
-  terminal knots: the same formulas, reassociated, and contracted into FMAs
-  where the compiler chooses;
-- the wrapper ``diff_all`` on CPU tensors, its argument checks, and a
-  ``cuda``-marked test of the kernel itself (skipped without a card).
+- the kernel's device code (``csrc/knot_chain.cuh``: the primal part's
+  stages, the 21 per-column parts and the Lxx columns, through
+  ``diff_knot_serial``, compiled for the host with g++) == ``diff_reference``
+  at 1e-11 of scale, running and terminal knots, also each column part on
+  its own: the same derivatives, the tangent passes formed in closed form
+  and from the primal part's link values, reassociated, and contracted into
+  FMAs where the compiler chooses;
+- the wrapper ``diff_all`` on CPU tensors, its argument checks, and
+  ``cuda``-marked tests of the kernel itself (skipped without a card).
 
 A field's scale is max(max|plain|, 1), as in ``tests/test_diff_pallas.py``.
+The inputs are built with the port alone, and the JAX package is imported
+only inside the comparisons with it (the ``jx`` fixture), which skip where
+JAX is not installed: a card's machine has none, and there the ``cuda``
+tests run with ``python -m pytest --noconftest tests/test_torch_diff.py -m
+cuda``.
 """
 
 import ctypes
 import math
 import shutil
 import subprocess
+from types import SimpleNamespace
 
 import numpy as np
-import jax
-import jax.numpy as jnp
 import pytest
 import torch
 
-from ffmpc_tpu.core import make_panda_model as j_make_model, KEYFRAMES, gravity_torque as j_gravity
-from ffmpc_tpu.ocp import action as jaction
-from ffmpc_tpu.ocp.channel_diff import diff_via_channels
-from ffmpc_tpu.ocp.problem import build_problem_refs as j_build_refs
-from ffmpc_tpu.ocp.weights import (ProblemRefs as JRefs, flagship_weights as j_weights,
-                                   flagship_trajectory as j_traj)
-from ffmpc_tpu.mpc.controllers import make_vertical_down_R
-from ffmpc_tpu_torch.core import panda_model_from_numpy
+from ffmpc_tpu_torch.core import KEYFRAMES, gravity_torque, make_panda_model
 from ffmpc_tpu_torch.core.kinematics import fk as t_fk
+from ffmpc_tpu_torch.mpc.controllers import make_vertical_down_R
 from ffmpc_tpu_torch.ocp import action as taction
 from ffmpc_tpu_torch.ocp.action import KnotDeriv
-from ffmpc_tpu_torch.ocp.weights import ProblemRefs, flagship_weights as t_weights
-from ffmpc_tpu_torch.ocp.weights import problem_refs_from_numpy
+from ffmpc_tpu_torch.ocp.problem import build_problem_refs
+from ffmpc_tpu_torch.ocp.weights import (ProblemRefs, flagship_trajectory,
+                                         flagship_weights as t_weights,
+                                         problem_refs_from_numpy)
 from ffmpc_tpu_torch.solver import _cuda_build
 from ffmpc_tpu_torch.solver import diff_cuda as dc
 from ffmpc_tpu_torch.solver.rollout_cuda import pack_knot_consts
@@ -59,35 +62,64 @@ def rot_z(theta):
     return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
 
 
+def seeded_problems(Bn, Nn, seed, dtype=torch.float64, device="cpu", wide=True):
+    """Bn problems of Nn knots around the neutral pose, built with the port
+    alone: states perturbed by 0.1, controls by 2 Nm around gravity torque
+    (problem 0's controls 4x wider where ``wide``, so the torque barriers
+    act), and the problem references of the flagship trajectory at times
+    spread over its approach and circle (problem 0 at 0.1 s, problem 1 at
+    1.2 s), each with its own first state as the state reference.
+    Returns (model, xs, us, refs_run, ref_T) as numpy float64, the model
+    and the references in ``dtype`` on ``device``."""
+    model = make_panda_model("plant", dtype=dtype, device=device)
+    q0 = np.asarray(KEYFRAMES["neutral"])
+    tau_g = gravity_torque(make_panda_model("plant", dtype=torch.float64, device="cpu"),
+                           T(q0)).numpy()
+    y0 = np.concatenate([q0, np.zeros(7), tau_g])
+    rng = np.random.default_rng(seed)
+    xs = y0 + 0.1 * rng.normal(size=(Bn, Nn + 1, 21))
+    us = tau_g + 2.0 * rng.normal(size=(Bn, Nn, 7))
+    if wide:
+        us[0] *= 4.0
+    ts = np.array([0.1, 1.2] + list(rng.uniform(0.0, 2.0, size=max(Bn - 2, 0))))[:Bn]
+    W = t_weights()
+    rr, rT = build_problem_refs(
+        flagship_trajectory(), torch.as_tensor(ts, dtype=dtype), Nn, W.dt_ocp,
+        torch.as_tensor(y0[:14], dtype=dtype), torch.as_tensor(tau_g, dtype=dtype),
+        torch.as_tensor(make_vertical_down_R(), dtype=dtype),
+        y_ref=torch.as_tensor(xs[:, 0], dtype=dtype), dtype=dtype, device=device)
+    return model, xs, us, rr, rT
+
+
 @pytest.fixture(scope="module")
 def setup():
-    """B problems of N knots around the neutral pose (states perturbed as in
-    ``tests/test_diff_pallas.py``: 0.1 on the state, 2 Nm on the controls,
-    one problem's controls 4x wider so the torque barriers act), with the
-    problem references of three points of the flagship trajectory.  Knot
-    (1, 1) and problem 1's terminal knot get a desired orientation 1e-7 rad
-    from the tool's own, an orientation error near zero."""
-    mj = j_make_model("plant", jnp.float64)
-    mt = panda_model_from_numpy({k: np.asarray(v) for k, v in mj._asdict().items()},
-                                dtype=torch.float64, device="cpu")
-    q0 = np.asarray(KEYFRAMES["neutral"])
-    tau_g = np.asarray(j_gravity(mj, jnp.asarray(q0)))
-    y0 = np.concatenate([q0, np.zeros(7), tau_g])
-    rng = np.random.default_rng(3)
-    xs = y0 + 0.1 * rng.normal(size=(B, N + 1, 21))
-    us = tau_g + 2.0 * rng.normal(size=(B, N, 7))
-    us[0] *= 4.0
-    W = j_weights()
-    rr, rT = jax.vmap(lambda t, x: j_build_refs(
-        j_traj(), t, N, W.dt_ocp, jnp.asarray(y0[:14]), jnp.asarray(tau_g),
-        jnp.asarray(make_vertical_down_R()), y_ref=x, dtype=jnp.float64))(
-        jnp.asarray([0.1, 1.2]), jnp.asarray(xs[:, 0]))
-    rr = {k: np.array(v) for k, v in rr._asdict().items()}
-    rT = {k: np.array(v) for k, v in rT._asdict().items()}
+    """B problems of N knots (``seeded_problems``, seed 3: the recipe of
+    ``tests/test_diff_pallas.py``).  Knot (1, 1) and problem 1's terminal
+    knot get a desired orientation 1e-7 rad from the tool's own, an
+    orientation error near zero."""
+    mt, xs, us, rr, rT = seeded_problems(B, N, 3)
+    rr = {k: getattr(rr, k).numpy().copy() for k in ProblemRefs._fields}
+    rT = {k: getattr(rT, k).numpy().copy() for k in ProblemRefs._fields}
     ee_R = t_fk(mt, T(xs[..., :7])).ee_R.numpy()
     rr["R_des"][1, 1] = ee_R[1, 1] @ rot_z(1e-7)
     rT["R_des"][1] = ee_R[1, N] @ rot_z(1e-7)
-    return dict(mj=mj, mt=mt, xs=xs, us=us, rr=rr, rT=rT)
+    return dict(mt=mt, xs=xs, us=us, rr=rr, rT=rT)
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX package's pieces the comparisons need (its model and
+    weights); skipped where JAX is not installed."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+    from ffmpc_tpu.core import make_panda_model as j_make_model
+    from ffmpc_tpu.ocp import action as jaction
+    from ffmpc_tpu.ocp.channel_diff import diff_via_channels
+    from ffmpc_tpu.ocp.weights import ProblemRefs as JRefs, flagship_weights as j_weights
+    return SimpleNamespace(jax=jax, jnp=jnp, mj=j_make_model("plant", jnp.float64),
+                           jaction=jaction, diff_via_channels=diff_via_channels,
+                           JRefs=JRefs, j_weights=j_weights)
 
 
 def port_refs(setup):
@@ -108,18 +140,18 @@ def scale_of(want):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("surface", [True, False], ids=["contact", "free"])
-def test_reference_matches_jax_channel_diff(setup, surface):
+def test_reference_matches_jax_channel_diff(setup, jx, surface):
     """Running knots: ``diff_reference`` against the TPU kernel's body, the
     channel diff, called per knot and op by op, as ``tests/test_diff_pallas.py``
     calls it (jitting it costs minutes of XLA compile on the CPU)."""
     rr_t, rT_t = port_refs(setup)
     got = dc.diff_reference(port_knot(setup, surface), rr_t, rT_t,
                             T(setup["xs"]), T(setup["us"]))
-    ch = diff_via_channels(setup["mj"], j_weights(), surface, "augmented")
+    ch = jx.diff_via_channels(jx.mj, jx.j_weights(), surface, "augmented")
     for b in range(B):
         for t in range(N):
-            ref = JRefs(**{k: jnp.asarray(v[b, t]) for k, v in setup["rr"].items()})
-            want = ch(ref, jnp.asarray(setup["xs"][b, t]), jnp.asarray(setup["us"][b, t]))
+            ref = jx.JRefs(**{k: jx.jnp.asarray(v[b, t]) for k, v in setup["rr"].items()})
+            want = ch(ref, jx.jnp.asarray(setup["xs"][b, t]), jx.jnp.asarray(setup["us"][b, t]))
             for name in FIELDS:
                 w = np.asarray(getattr(want, name))
                 g = getattr(got.run, name)[b, t].numpy()
@@ -128,14 +160,14 @@ def test_reference_matches_jax_channel_diff(setup, surface):
 
 
 @pytest.mark.parametrize("surface", [True, False], ids=["contact", "free"])
-def test_terminal_matches_jax_term_diff(setup, surface):
+def test_terminal_matches_jax_term_diff(setup, jx, surface):
     rr_t, rT_t = port_refs(setup)
     got = dc.diff_reference(port_knot(setup, surface), rr_t, rT_t,
                             T(setup["xs"]), T(setup["us"]))
-    kj = jaction.make_augmented_knot(setup["mj"], j_weights(), surface,
-                                     deriv_mode="analytic", calc_mode="vector")
-    rT_j = JRefs(**{k: jnp.asarray(v) for k, v in setup["rT"].items()})
-    want = jax.jit(jax.vmap(kj.term_diff))(rT_j, jnp.asarray(setup["xs"][:, -1]))
+    kj = jx.jaction.make_augmented_knot(jx.mj, jx.j_weights(), surface,
+                                        deriv_mode="analytic", calc_mode="vector")
+    rT_j = jx.JRefs(**{k: jx.jnp.asarray(v) for k, v in setup["rT"].items()})
+    want = jx.jax.jit(jx.jax.vmap(kj.term_diff))(rT_j, jx.jnp.asarray(setup["xs"][:, -1]))
     for name, g, w in zip(TERM_FIELDS, got[1:], want):
         w = np.asarray(w)
         err = float(np.abs(g.numpy() - w).max())
@@ -150,19 +182,23 @@ _HOST_HARNESS = r"""
 #include <cstring>
 #include "knot_chain.cuh"
 
-// Every knot of the batch, one after the other: what the kernel's threads do.
+// Every knot of the batch, one after the other, each through the parts in
+// turn (the primal part, the columns, the Lxx columns): what the kernel's
+// blocks do.  columns / n_columns: the columns to run at every knot, in that
+// order (null: all of them, ascending).
 extern "C" int knot_diff_host_f64(const void* consts, const void* xs, const void* us,
                                   const void* const* refs, const void* const* refs_T,
-                                  void* const* outs, int B, int N, int surface) {
+                                  void* const* outs, int B, int N, int surface,
+                                  const int* columns, int n_columns) {
   ffmpc::KnotConstants<double> C;
   std::memcpy(&C, consts, sizeof(C));
   const auto a = ffmpc::diff_args<double>(xs, us, refs, refs_T, outs, B, N);
   for (int b = 0; b < B; ++b)
     for (int t = 0; t <= N; ++t) {
       if (surface)
-        ffmpc::diff_knot<double, true>(C, a, b, t);
+        ffmpc::diff_knot_serial<double, true>(C, a, b, t, columns, n_columns);
       else
-        ffmpc::diff_knot<double, false>(C, a, b, t);
+        ffmpc::diff_knot_serial<double, false>(C, a, b, t, columns, n_columns);
     }
   return 0;
 }
@@ -180,13 +216,14 @@ def host_lib(tmp_path_factory):
     subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I",
                     str(_cuda_build.CSRC_DIR), "-o", str(lib), str(src)], check=True)
     fn = ctypes.CDLL(str(lib)).knot_diff_host_f64
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn
 
 
-def host_diff(fn, knot, refs_run, ref_T, xs, us):
-    """The header's ``diff_knot`` over every knot, into fresh outputs."""
+def host_diff(fn, knot, refs_run, ref_T, xs, us, columns=None):
+    """The header's parts over every knot (``diff_knot_serial``), into
+    outputs that start NaN; ``columns``: the columns to run (all if None)."""
     Bn, Nn = us.shape[:2]
     consts = pack_knot_consts(knot.model, knot.W, knot.surface, torch.float64)
 
@@ -198,10 +235,11 @@ def host_diff(fn, knot, refs_run, ref_T, xs, us):
                     nan(Bn, Nn, 21, 7), nan(Bn, Nn, 7, 7))
     out = dc.KnotDerivs(run, nan(Bn), nan(Bn, 21), nan(Bn, 21, 21))
     p6 = ctypes.c_void_p * 6
+    cols = None if columns is None else (ctypes.c_int * len(columns))(*columns)
     fn(consts.data_ptr(), xs.data_ptr(), us.data_ptr(),
        p6(*(a.data_ptr() for a in refs_run)), p6(*(a.data_ptr() for a in ref_T)),
        (ctypes.c_void_p * 12)(*(a.data_ptr() for a in (*run, *out[1:]))), Bn, Nn,
-       int(knot.surface))
+       int(knot.surface), cols, 0 if columns is None else len(columns))
     return out
 
 
@@ -257,6 +295,31 @@ def test_host_build_non_finite_sets_match_reference(setup, host_lib, surface):
                         "non-finite inputs")
 
 
+@pytest.mark.parametrize("surface", [True, False], ids=["contact", "free"])
+def test_host_build_runs_each_column_part_on_its_own(setup, host_lib, surface):
+    """Each of the 21 per-column parts (7 q-passes, 7 v-passes, 7 control
+    columns), run alone after the primal part, writes its own column of
+    Fx's rows 0-13 at every running knot and no other, within 1e-11 of
+    scale of ``diff_reference``; and the 21 run in reverse order give the
+    same bits as in order (a column reads only the primal part's record, as
+    the kernel's warps, which run them concurrently, require)."""
+    knot = port_knot(setup, surface)
+    rr_t, rT_t = port_refs(setup)
+    xs, us = T(setup["xs"]), T(setup["us"])
+    want = dc.diff_reference(knot, rr_t, rT_t, xs, us).run.Fx[:, :, :14]
+    scale = max(float(want.abs().max()), 1.0)
+    for c in range(21):
+        got = host_diff(host_lib, knot, rr_t, rT_t, xs, us, columns=[c]).run.Fx[:, :, :14]
+        others = [j for j in range(21) if j != c]
+        assert bool(torch.isnan(got[..., others]).all()), c
+        err = float((got[..., c] - want[..., c]).abs().max())
+        assert err <= 1e-11 * scale, f"column {c}: err {err:.3e} scale {scale:.3e}"
+    fwd = host_diff(host_lib, knot, rr_t, rT_t, xs, us)
+    rev = host_diff(host_lib, knot, rr_t, rT_t, xs, us, columns=list(range(20, -1, -1)))
+    for a, b in zip((*fwd.run, *fwd[1:]), (*rev.run, *rev[1:])):
+        assert torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # the wrapper
 # ---------------------------------------------------------------------------
@@ -301,8 +364,7 @@ def test_cuda_kernel_matches_plain_version(setup, surface):
     comparison at the flagship shapes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the diff kernel has no CPU build")
-    mt = panda_model_from_numpy({k: np.asarray(v) for k, v in setup["mj"]._asdict().items()},
-                                dtype=torch.float64, device="cuda")
+    mt = make_panda_model("plant", dtype=torch.float64, device="cuda")
     knot = taction.make_augmented_knot(mt, t_weights(), surface)
     consts = pack_knot_consts(knot.model, knot.W, knot.surface, torch.float64)
     rr_t, rT_t = (ProblemRefs(*(a.cuda() for a in r)) for r in port_refs(setup))
@@ -315,3 +377,94 @@ def test_cuda_kernel_matches_plain_version(setup, surface):
     cpu = lambda d: dc.KnotDerivs(KnotDeriv(*(a.cpu() for a in d.run)),
                                   *(a.cpu() for a in d[1:]))
     assert_derivs_close(cpu(got), cpu(want), 1e-11, "kernel")
+
+
+# The kernel's float32 gate, chip_smoke.py's (see the reasons there): per
+# knot and field, its largest error against the plain float64 version is at
+# most DIFF_F32_FACTOR times the plain float32 version's own, plus
+# DIFF_F32_FLOOR of the field's scale; on every knot but those whose float64
+# contact force lies within UNILATERAL_EDGE_N of the unilateral barrier's
+# bound (at most DIFF_MAX_EDGE_SHARE of the knots).
+DIFF_F32_FACTOR, DIFF_F32_FLOOR = 4.0, 1e-6
+UNILATERAL_EDGE_N = 1e-2
+DIFF_MAX_EDGE_SHARE = 1e-3
+CUDA_SHAPES = ((1, 1), (1, 40), (3, 1), (3, 40), (1024, 1), (1024, 40))
+
+
+def unilateral_edge(knot64, refs_run, ref_T, xs):
+    """Running (B, N) and terminal (B,) masks of the knots whose float64
+    contact force lies within UNILATERAL_EDGE_N of the barrier's bound."""
+    from ffmpc_tpu_torch.core.dynamics import fwd_dynamics_contact
+    W = knot64.W
+
+    def force(y, ref):
+        dyn = fwd_dynamics_contact(
+            knot64.model, y[..., :7], y[..., 7:14], y[..., 14:], nc1=True,
+            ref_pos=ref.p_ref[..., 2].double() - W.z_press,
+            baumgarte_kp=W.contact_gains[0], baumgarte_kd=W.contact_gains[1],
+            damping_c=W.contact_inv_damping)
+        return dyn.force[..., 0]
+    xs = xs.double()
+    return ((force(xs[:, :-1], refs_run) - W.friction_margin).abs() <= UNILATERAL_EDGE_N,
+            (force(xs[:, -1], ref_T) - W.friction_margin).abs() <= UNILATERAL_EDGE_N)
+
+
+def assert_f32_within_gate(got, plain32, plain64, edge_run, edge_T, what):
+    pairs = [(n, getattr(got.run, n), getattr(plain32.run, n), getattr(plain64.run, n), 2)
+             for n in FIELDS]
+    pairs += [(n, g, p, r, 1) for n, g, p, r in zip(TERM_FIELDS, got[1:], plain32[1:],
+                                                      plain64[1:])]
+    n_knots = edge_run.numel() + edge_T.numel()
+    assert int(edge_run.sum() + edge_T.sum()) <= DIFF_MAX_EDGE_SHARE * n_knots, what
+    for name, g, p, r, lead in pairs:
+        scale = max(float(r.abs().max()), 1.0)
+        ek = (g.double() - r).abs().reshape(r.shape[:lead] + (-1,)).amax(-1)
+        ep = (p.double() - r).abs().reshape(r.shape[:lead] + (-1,)).amax(-1)
+        over = ~(ek <= DIFF_F32_FACTOR * ep + DIFF_F32_FLOOR * scale)   # NaN counts as over
+        edge = edge_run if lead == 2 else edge_T
+        assert not bool((over & ~edge).any()), (what, name, int((over & ~edge).sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("surface", [True, False], ids=["contact", "free"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["float64", "float32"])
+def test_cuda_kernel_layout_matches_plain_version(dtype, surface):
+    """The kernel at the batch sizes and horizons its block layout cuts
+    differently (B in 1, 3, 1024: a block's 32 knots from one problem or
+    many, a partial last block, terminal blocks of 1, 3 and 32 problems;
+    N in 1, 40), on seeded inputs built with the port alone (seed 5), against
+    its plain version on the card: float64 at 1e-11 of scale with the same
+    non-finite (knot, field) pairs; float32 within chip_smoke.py's gate.
+    One launch each (``diff_all.launches``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the diff kernel has no CPU build")
+    for Bn, Nn in CUDA_SHAPES:
+        model, xs_np, us_np, rr, rT = seeded_problems(Bn, Nn, 5, dtype=dtype, device="cuda")
+        knot = taction.make_augmented_knot(model, t_weights(), surface)
+        consts = pack_knot_consts(knot.model, knot.W, knot.surface, dtype)
+        rr = ProblemRefs(*(a.contiguous() for a in rr))
+        rT = ProblemRefs(*(a.contiguous() for a in rT))
+        xs = torch.as_tensor(xs_np, dtype=dtype, device="cuda")
+        us = torch.as_tensor(us_np, dtype=dtype, device="cuda")
+        before = dc.diff_all.launches
+        got = dc.diff_all(knot, consts, rr, rT, xs, us)
+        torch.cuda.synchronize()
+        assert dc.diff_all.launches == before + 1
+        want = dc.diff_reference(knot, rr, rT, xs, us)
+        cpu = lambda d: dc.KnotDerivs(KnotDeriv(*(a.cpu() for a in d.run)),  # noqa: E731
+                                      *(a.cpu() for a in d[1:]))
+        what = f"B={Bn} N={Nn}"
+        if dtype == torch.float64:
+            assert_derivs_close(cpu(got), cpu(want), 1e-11, what)
+            continue
+        model64 = make_panda_model("plant", dtype=torch.float64, device="cuda")
+        knot64 = taction.make_augmented_knot(model64, t_weights(), surface)
+        rr64 = ProblemRefs(*(a.double() for a in rr))
+        rT64 = ProblemRefs(*(a.double() for a in rT))
+        want64 = dc.diff_reference(knot64, rr64, rT64, xs.double(), us.double())
+        if surface:
+            edge_run, edge_T = unilateral_edge(knot64, rr64, rT64, xs)
+        else:
+            edge_run = torch.zeros(Bn, Nn, dtype=torch.bool, device="cuda")
+            edge_T = torch.zeros(Bn, dtype=torch.bool, device="cuda")
+        assert_f32_within_gate(got, want, want64, edge_run, edge_T, what)

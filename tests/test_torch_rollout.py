@@ -17,26 +17,25 @@ Tolerances, each against the field's largest magnitude:
   atol 1e-10: the scalar chain differs from the vector one by its Newton
   arccos and its op order, about 1e-9 per knot
   (``tests/test_scalar_knot.py``).
+
+The inputs are built with the port alone, and the JAX package is imported
+only inside the comparisons with it (the ``jx`` fixture), which skip where
+JAX is not installed: a card's machine has none, and there the
+``cuda``-marked test runs with
+``python -m pytest --noconftest tests/test_torch_rollout.py -m cuda``.
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
-import jax
-import jax.numpy as jnp
 import pytest
 import torch
 
-from ffmpc_tpu.core import make_panda_model as j_make_model, KEYFRAMES, gravity_torque as j_gravity
-from ffmpc_tpu.ocp import action as jaction
-from ffmpc_tpu.ocp.weights import OCPWeights as JWeights, flagship_weights as j_fweights
-from ffmpc_tpu.ocp.problem import build_problem_refs as j_build_refs
-from ffmpc_tpu.solver.rollout_pallas import make_fused_rollout
-from ffmpc_tpu.tasks.trajectories import ApproachCircleTraj as JTraj
-from ffmpc_tpu_torch.core import panda_model_from_numpy
+from ffmpc_tpu_torch.core import KEYFRAMES, gravity_torque, make_panda_model
 from ffmpc_tpu_torch.ocp import action as taction
-from ffmpc_tpu_torch.ocp.weights import (OCPWeights as TWeights, flagship_weights as t_fweights,
-                                         problem_refs_from_numpy)
+from ffmpc_tpu_torch.ocp.weights import (OCPWeights as TWeights, ProblemRefs,
+                                         flagship_weights as t_fweights)
 from ffmpc_tpu_torch.ocp.problem import build_problem_refs as t_build_refs
 from ffmpc_tpu_torch.solver import rollout_cuda as rc
 from ffmpc_tpu_torch.solver import _cuda_build
@@ -58,29 +57,23 @@ def T(a):
     return torch.tensor(np.array(a), dtype=torch.float64)
 
 
-def to_port_model(mj):
-    return panda_model_from_numpy({k: np.asarray(v) for k, v in mj._asdict().items()},
-                                  dtype=torch.float64, device="cpu")
-
-
-def to_port_refs(r):
-    return problem_refs_from_numpy({k: np.asarray(v) for k, v in r._asdict().items()},
-                                   dtype=torch.float64, device="cpu")
-
-
 @pytest.fixture(scope="module")
 def setup():
-    mj = j_make_model("plant", jnp.float64)
-    q0 = jnp.asarray(KEYFRAMES["neutral"], jnp.float64)
-    tau_g = j_gravity(mj, q0)
-    y0 = jnp.concatenate([q0, jnp.zeros(7), tau_g])
-    x_reg = jnp.concatenate([q0, jnp.zeros(7)])
-    refs_run, ref_T = j_build_refs(
-        JTraj(**TRAJ_KW), jnp.asarray(1.2), NH, W_KW["dt_ocp"], x_reg, tau_g,
-        jnp.asarray(np.diag([1.0, -1.0, -1.0])), y_ref=y0, dtype=jnp.float64)
+    """The inputs, built with the port alone (a card's machine has no JAX):
+    the problem references of one point of the trajectory, shared by the
+    problems, and seeded states, controls, gains and gaps."""
+    mt = make_panda_model("plant", dtype=torch.float64, device="cpu")
+    q0 = torch.as_tensor(KEYFRAMES["neutral"], dtype=torch.float64)
+    tau_g = gravity_torque(mt, q0)
+    y0 = torch.cat([q0, torch.zeros(7, dtype=torch.float64), tau_g])
+    x_reg = torch.cat([q0, torch.zeros(7, dtype=torch.float64)])
+    rr1, rT1 = t_build_refs(
+        TTraj(**TRAJ_KW), torch.tensor([1.2], dtype=torch.float64), NH, W_KW["dt_ocp"],
+        x_reg, tau_g, torch.as_tensor(np.diag([1.0, -1.0, -1.0])), y_ref=y0,
+        dtype=torch.float64, device="cpu")
     rng = np.random.default_rng(7)
     nx = 21
-    y0n, tgn = np.asarray(y0), np.asarray(tau_g)
+    y0n, tgn = y0.numpy(), tau_g.numpy()
     x0 = y0n[None] + 0.05 * rng.normal(size=(BN, nx))
     xs = np.tile(x0[:, None, :], (1, NH + 1, 1)) + 0.02 * rng.normal(size=(BN, NH + 1, nx))
     us = np.tile(tgn, (BN, NH, 1)) + 2.0 * rng.normal(size=(BN, NH, 7))
@@ -89,27 +82,48 @@ def setup():
     fs = 0.1 * rng.normal(size=(BN, NH + 1, nx))
     feas = np.array([False, True])
     # the port's refs carry the batch: the same problem refs for every problem
-    t_rr = to_port_refs(jax.tree.map(lambda a: jnp.broadcast_to(a, (BN,) + a.shape), refs_run))
-    t_rT = to_port_refs(jax.tree.map(lambda a: jnp.broadcast_to(a, (BN,) + a.shape), ref_T))
-    return dict(mj=mj, mt=to_port_model(mj), refs_run=refs_run, ref_T=ref_T,
-                t_rr=t_rr, t_rT=t_rT, arrays=(x0, xs, us, K, kff, fs, feas))
+    t_rr = ProblemRefs(*(a.expand(BN, *a.shape[1:]).contiguous() for a in rr1))
+    t_rT = ProblemRefs(*(a.expand(BN, *a.shape[1:]).contiguous() for a in rT1))
+    return dict(mt=mt, refs_run=rr1, ref_T=rT1, t_rr=t_rr, t_rT=t_rT,
+                arrays=(x0, xs, us, K, kff, fs, feas))
+
+
+@pytest.fixture(scope="module")
+def jx(setup):
+    """The JAX package's pieces the comparisons need: its model, and the
+    setup's problem references as its ProblemRefs (one problem, unbatched).
+    Skipped where JAX is not installed."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from ffmpc_tpu.core import make_panda_model as j_make_model
+    from ffmpc_tpu.ocp.weights import ProblemRefs as JRefs
+
+    def j_refs(r):
+        return JRefs(**{k: jnp.asarray(getattr(r, k)[0].numpy()) for k in ProblemRefs._fields})
+    return SimpleNamespace(mj=j_make_model("plant", jnp.float64),
+                           refs_run=j_refs(setup["refs_run"]), ref_T=j_refs(setup["ref_T"]))
 
 
 _jax_rollouts = {}
 
 
-def jax_rollout(setup, surface, calc_mode):
+def jax_rollout(jx, surface, calc_mode):
     """The JAX package's plain fused-rollout reference (alpha-vmapped scan),
     jitted once per knot and called unbatched per problem."""
+    import jax
+    import jax.numpy as jnp
+    from ffmpc_tpu.ocp import action as jaction
+    from ffmpc_tpu.ocp.weights import OCPWeights as JWeights
+    from ffmpc_tpu.solver.rollout_pallas import make_fused_rollout
     key = (surface, calc_mode)
     if key not in _jax_rollouts:
-        knot = jaction.make_augmented_knot(setup["mj"], JWeights(**W_KW), surface,
+        knot = jaction.make_augmented_knot(jx.mj, JWeights(**W_KW), surface,
                                            deriv_mode="analytic", calc_mode=calc_mode)
         _jax_rollouts[key] = jax.jit(make_fused_rollout(knot, NA, use_box=True))
     fn = _jax_rollouts[key]
 
     def run(arrays):
-        outs = [fn(*(jnp.asarray(a[b]) for a in arrays), setup["refs_run"], setup["ref_T"])
+        outs = [fn(*(jnp.asarray(a[b]) for a in arrays), jx.refs_run, jx.ref_T)
                 for b in range(BN)]
         return [np.stack([np.asarray(o[i]) for o in outs]) for i in range(3)]
     return run
@@ -140,14 +154,15 @@ def assert_close(got, want, rtol, atol, what):
     (True, "vector", 1e-11, 0.0), (False, "vector", 1e-11, 0.0),
     (True, "scalar", 1e-8, 1e-10), (False, "scalar", 1e-8, 1e-10)],
     ids=["contact-vector", "free-vector", "contact-scalar", "free-scalar"])
-def test_reference_matches_jax_fused_rollout_reference(setup, surface, calc_mode, rtol, atol):
-    want = jax_rollout(setup, surface, calc_mode)(setup["arrays"])
+def test_reference_matches_jax_fused_rollout_reference(setup, jx, surface, calc_mode, rtol,
+                                                       atol):
+    want = jax_rollout(jx, surface, calc_mode)(setup["arrays"])
     got = [o.numpy() for o in port_rollout(setup, surface, setup["arrays"])]
     assert got[0].shape == (BN, NA, NH + 1, 21) and got[2].shape == (BN, NA)
     assert_close(got, want, rtol, atol, f"{surface}/{calc_mode}")
 
 
-def test_non_finite_rollouts_match_jax_and_nan_controls_survive_the_clip(setup):
+def test_non_finite_rollouts_match_jax_and_nan_controls_survive_the_clip(setup, jx):
     """Problem 0 (infeasible) carries a huge gap at one knot, so every step
     length below 1 (which keeps (alpha - 1) of it) blows up while alpha = 1
     stays finite; problem 1 has a NaN gain entry, so its controls are NaN
@@ -158,7 +173,7 @@ def test_non_finite_rollouts_match_jax_and_nan_controls_survive_the_clip(setup):
     K[1, 1, 3, 5] = np.nan
     arrays = (x0, xs, us, K, kff, fs, feas)
     got = [o.numpy() for o in port_rollout(setup, True, arrays)]
-    want = jax_rollout(setup, True, "vector")(arrays)
+    want = jax_rollout(jx, True, "vector")(arrays)
     fin = np.isfinite(got[2])
     assert fin[0].tolist() == [True] + [False] * (NA - 1)
     assert not fin[1].any()
@@ -171,6 +186,7 @@ def _jax_table(mj, W, surface):
     """Expected kernel cost table from the JAX package's own spec: its
     ``_make_spec`` and the outer terms its ``make_augmented_knot`` adds, as
     name -> (kind, weight x dt scale, row weights, lb, ub, terminal)."""
+    from ffmpc_tpu.ocp import action as jaction
     from ffmpc_tpu.ocp import activations as jact
     spec = dict(jaction._make_spec(mj, W, surface)[0])
     if not W.use_inner_state_reg:
@@ -195,7 +211,8 @@ def _jax_table(mj, W, surface):
 
 @pytest.mark.parametrize("surface", [True, False], ids=["contact", "free"])
 @pytest.mark.parametrize("variant", ["flagship", "zeros"])
-def test_constant_packer_matches_jax_spec(setup, surface, variant):
+def test_constant_packer_matches_jax_spec(setup, jx, surface, variant):
+    from ffmpc_tpu.ocp.weights import flagship_weights as j_fweights
     W = j_fweights()
     if variant == "zeros":
         # terms off or at zero weight: absent from the table, or scale 0
@@ -204,7 +221,7 @@ def test_constant_packer_matches_jax_spec(setup, surface, variant):
     Wt = TWeights(**dataclasses.asdict(W))
     mt = setup["mt"]
     table = rc.cost_table(mt, Wt, surface)
-    want = _jax_table(setup["mj"], W, surface)
+    want = _jax_table(jx.mj, W, surface)
     row0 = 0
     for s, (name, nr) in enumerate(rc.COST_SLOTS):
         rows = slice(row0, row0 + nr)
@@ -237,7 +254,7 @@ def test_constant_packer_matches_jax_spec(setup, surface, variant):
         fields[name] = consts[off:off + n].numpy()
         off += n
     for name in ("j_rot", "inertia", "com", "mass", "armature", "damping", "ee_rot"):
-        np.testing.assert_array_equal(fields[name], np.asarray(getattr(setup["mj"], name)).ravel())
+        np.testing.assert_array_equal(fields[name], np.asarray(getattr(jx.mj, name)).ravel())
     assert fields["lpf_alpha"][0] + fields["lpf_beta"][0] == 1.0
     assert (fields["kp"][0], fields["kd"][0]) == tuple(W.contact_gains)
     np.testing.assert_array_equal(fields["slot_scale"], table["slot_scale"])
@@ -314,9 +331,8 @@ def test_cuda_kernel_matches_plain_version(setup, surface):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the rollout kernel has no CPU build")
     knot = taction.make_augmented_knot(
-        panda_model_from_numpy({k: np.asarray(v) for k, v in setup["mj"]._asdict().items()},
-                               dtype=torch.float64, device="cuda"),
-        TWeights(**W_KW), surface)
+        make_panda_model("plant", dtype=torch.float64, device="cuda"), TWeights(**W_KW),
+        surface)
     consts = rc.pack_knot_consts(knot.model, knot.W, knot.surface, torch.float64)
     x0, xs, us, K, kff, fs, feas = setup["arrays"]
     args = ([T(a).cuda() for a in (x0, xs, us, K, kff, fs)] + [torch.as_tensor(feas).cuda()]
@@ -343,7 +359,6 @@ def test_solve_matches_golden_fixture():
     "kernel" (backward, rollout and diff; the plain versions on the CPU), at
     that test's bar: us atol 1e-6, cost rtol 1e-8."""
     from pathlib import Path
-    from ffmpc_tpu_torch.core import make_panda_model, gravity_torque
     from ffmpc_tpu_torch.mpc.controllers import make_vertical_down_R
     path = Path(__file__).resolve().parents[1] / GOLDEN
     model = make_panda_model("plant", dtype=torch.float64, device="cpu")
