@@ -10,10 +10,11 @@ loop on the same three kernels (`make_episode_fn`: the flagship episode at
 E=1 over 240 ticks through first contact, and `run/ensemble.py::
 run_ensemble`, 512 perturbed episodes of 100 ticks), after building every
 CUDA kernel from `ffmpc_tpu_torch/csrc/` and holding each against its plain
-PyTorch version on the card (the backward sweep also run as launches of 1
-and of 3 problems; the backward sweep and the knot derivatives timed at
-B=1, 256 and 1024, their resident blocks an SM and ptxas' registers and
-spills printed: neither float32 build may spill).
+PyTorch version on the card (the backward sweep and the rollout also run as
+launches of 1 and of 3 problems; the three solver kernels timed at B=1, 256
+and 1024, their resident blocks an SM and ptxas' registers and spills
+printed: no float32 build may spill; the rollout's gap sums dv_try held
+with its trajectories).
 Phases: device, build, kernels,
 small_reference, golden (the framework-free solver fixture), solve, stages
 (where one iteration's time goes), probes (the four probe kernels of
@@ -68,8 +69,11 @@ from ffmpc_tpu_torch.solver.diff_cuda import resident_blocks_per_sm as diff_resi
 from ffmpc_tpu_torch.solver.fddp import (FDDPSettings, KGAIN_REG, accept_step,
                                          backward_inputs, control_bounds,
                                          solve as fddp_solve)
-from ffmpc_tpu_torch.solver.rollout_cuda import (pack_knot_consts, rollout,
+from ffmpc_tpu_torch.solver.rollout_cuda import (gap_sum, pack_knot_consts, rollout,
                                                  rollout_reference)
+from ffmpc_tpu_torch.solver.rollout_cuda import (
+    problems_per_block as rollout_problems_per_block,
+    resident_blocks_per_sm as rollout_resident_blocks_per_sm)
 
 NX, NU, HORIZON, ITERS, BOXQP_ITERS, N_ALPHAS = 21, 7, 40, 10, 8, 10
 BATCHES = (256, 1024)
@@ -157,7 +161,7 @@ ROLLOUT_TOL_F64 = dict(rtol=5e-9, atol=1e-10)
 ROLLOUT_F32_FACTOR, ROLLOUT_F32_FLOOR = 4.0, 1e-6
 ROLLOUT_MIN_AGREE_F32 = 0.9
 ROLLOUT_NONFINITE_AGREE = 0.99
-ROLLOUT_FIELDS = ("xs_try", "us_try", "cost_try")
+ROLLOUT_FIELDS = ("xs_try", "us_try", "cost_try", "dv_try")
 
 # Diff kernel vs its plain version, errors per output field, with a field's
 # scale = max(max|plain| over the batch, 1) (tests/test_diff_pallas.py's).
@@ -239,6 +243,32 @@ def graph_time_ms(fn, n=20, rounds=7):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1) / n)
     return float(np.median(times))
+
+
+def kernel_launches(fn):
+    """The operations one call of `fn` runs on the card (kernels, copies),
+    as torch.profiler's CUDA activity records them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def device_figures(fn):
+    """A host-bound function's device side: its device time a call
+    (`graph_time_ms`) and its kernel launches (`kernel_launches`).  A
+    figure the profiler or the graph capture cannot give is recorded as the
+    error it raised (a measurement, not a gate)."""
+    rec = {}
+    for key, measure in (("ms_device", graph_time_ms), ("launches", kernel_launches)):
+        try:
+            rec[key] = measure(fn)
+        except Exception as e:  # recorded, not gated
+            rec[key] = f"not measured: {type(e).__name__}: {e}"
+    return rec
 
 
 def random_backward_args(B, N, tight, dtype, seed):
@@ -324,9 +354,10 @@ def rollout_flops(B, N, A):
 
 
 def rollout_bytes(args, outs):
-    """Each input read once, each output written once."""
-    x0, xs, us, K, kff, fs, feasible, refs_run, ref_T = args
-    tensors = [x0, xs, us, K, kff, fs, feasible, *refs_run, *ref_T, *outs]
+    """Each input read once (the gap products w_all too), each output
+    written once (the gap sums dv_try too)."""
+    *arrays, refs_run, ref_T = args
+    tensors = [*arrays, *refs_run, *ref_T, *outs]
     return sum(a.numel() * a.element_size() for a in tensors)
 
 
@@ -424,15 +455,15 @@ def main_path_backward_args(B):
 
 def main_path_rollout_args(B, dtype=torch.float32):
     """The rollout's inputs as the first iteration of the flagship solve
-    produces them: K and kff from the backward kernel.  Returns
-    (knot, consts, args)."""
+    produces them: K, kff and the gap products w_all from the backward
+    kernel.  Returns (knot, consts, args), the constants on the card."""
     it = main_path_first_iteration(B, dtype)
     reg = torch.full((B,), 1e-9, dtype=dtype, device="cuda")
     out = backward_box(*it["bi"].args, reg, reg, boxqp_iters=BOXQP_ITERS,
                        kgain_reg=KGAIN_REG)
     knot = it["knot"]
-    consts = pack_knot_consts(knot.model, knot.W, knot.surface, dtype)
-    args = (it["x0"], it["xs"], it["us"], out[0], out[1], it["bi"].fs,
+    consts = pack_knot_consts(knot.model, knot.W, knot.surface, dtype).cuda()
+    args = (it["x0"], it["xs"], it["us"], out[0], out[1], it["bi"].fs, out[6],
             it["bi"].feasible, it["refs_run"], it["ref_T"])
     return knot, consts, args
 
@@ -441,7 +472,8 @@ def seeded_rollout_args(B, N, dtype, seed):
     """Seeded rollout inputs, the recipe of the JAX package's fused-rollout
     test (tests/test_rollout_pallas.py) at the flagship knot and horizon:
     states around the neutral pose, controls around gravity torque, random
-    gains, feed-forwards and gaps, every other problem feasible."""
+    gains, feed-forwards, gaps and gap products, every other problem
+    feasible.  Returns (knot, consts, args), the constants on the card."""
     model, W, traj, ep, q0 = flagship(dtype)
     knot = make_augmented_knot(model, W, surface=True)
     rng = np.random.default_rng(seed)
@@ -458,6 +490,7 @@ def seeded_rollout_args(B, N, dtype, seed):
     K = 0.1 * T(rng.normal(size=(B, N, NU, NX)))
     kff = T(rng.normal(size=(B, N, NU)))
     fs = 0.1 * T(rng.normal(size=(B, N + 1, NX)))
+    w_all = 0.3 * T(rng.normal(size=(B, N + 1, NX)))
     feasible = torch.arange(B, device="cuda") % 2 == 1
     x_reg = torch.cat([q, torch.zeros(7, dtype=dtype, device="cuda")])
     refs_run, ref_T = build_problem_refs(
@@ -465,15 +498,27 @@ def seeded_rollout_args(B, N, dtype, seed):
         tau_g, make_vertical_down_R(), y_ref=x0, dtype=dtype, device="cuda")
     refs_run = ProblemRefs(*(a.contiguous() for a in refs_run))
     ref_T = ProblemRefs(*(a.contiguous() for a in ref_T))
-    consts = pack_knot_consts(knot.model, knot.W, knot.surface, dtype)
-    return knot, consts, (x0, xs, us, K, kff, fs, feasible, refs_run, ref_T)
+    consts = pack_knot_consts(knot.model, knot.W, knot.surface, dtype).cuda()
+    return knot, consts, (x0, xs, us, K, kff, fs, w_all, feasible, refs_run, ref_T)
 
 
 def to_double(args):
-    x0, xs, us, K, kff, fs, feasible, refs_run, ref_T = args
+    x0, xs, us, K, kff, fs, w_all, feasible, refs_run, ref_T = args
     return ((x0.double(), xs.double(), us.double(), K.double(), kff.double(),
-             fs.double(), feasible, ProblemRefs(*(a.double() for a in refs_run)),
+             fs.double(), w_all.double(), feasible, ProblemRefs(*(a.double() for a in refs_run)),
              ProblemRefs(*(a.double() for a in ref_T))))
+
+
+def rollout_slice(args, i, j):
+    """The rollout's inputs of problems i..j-1 (contiguous copies)."""
+    *arrays, refs_run, ref_T = args
+    return (*(a[i:j].contiguous() for a in arrays),
+            ProblemRefs(*(a[i:j].contiguous() for a in refs_run)),
+            ProblemRefs(*(a[i:j].contiguous() for a in ref_T)))
+
+
+def flagship_knot(dtype):
+    return make_augmented_knot(flagship(dtype)[0], flagship_weights(), surface=True)
 
 
 def phase_device():
@@ -670,7 +715,6 @@ def phase_kernels():
     return {"name": "backward_sweep", "route": "cuda",
             "source": "ffmpc_tpu_torch/csrc/backward_sweep.cu",
             "replaces": "ffmpc_tpu/solver/backward_pallas.py:237",
-            "launches": None,
             "max_abs_err": max(main_rec["max_abs_err"].values()),
             "max_abs_err_by_field": main_rec["max_abs_err"],
             "max_rel_err_by_field": {n: e / main_rec["scale"][n]
@@ -697,71 +741,131 @@ def rollout_errors(out_a, out_b):
     return res
 
 
+def rollout_gate(knot, args, out_k, knot64, out_r=None):
+    """The rollout kernel's outputs `out_k` on `args` against the plain
+    version's (`out_r`, computed here if not given), at the gates above:
+    float64 within ROLLOUT_TOL_F64 of every field's scale with equal
+    non-finite sets; float32 against the plain float64 version's yardstick.
+    Returns the record, with "ok"."""
+    f64 = args[1].dtype == torch.float64
+    if out_r is None:
+        out_r = rollout_reference(knot, *args, N_ALPHAS)
+    errs = rollout_errors(out_k, out_r)
+    nf_k, nf_r = (~torch.isfinite(o[2]) for o in (out_k, out_r))
+    rec = {"B": int(args[1].shape[0]), "N": int(args[2].shape[1]),
+           "A": N_ALPHAS, "dtype": "float64" if f64 else "float32",
+           "nonfinite_cost_rows": int(nf_r.sum()),
+           "nonfinite_rows_agree_share": float((nf_k == nf_r).double().mean()),
+           "max_abs_err": {n: float(e.max()) for n, (e, _) in errs.items()},
+           "scale": {n: float(sc.max()) for n, (_, sc) in errs.items()}}
+    if f64:
+        ok = all(bool((torch.isfinite(a) == torch.isfinite(b)).all())
+                 for a, b in zip(out_k, out_r))
+        rec["nonfinite_sets_equal"] = ok
+        for n, (e, sc) in errs.items():
+            ok = ok and (float(e.max()) <= ROLLOUT_TOL_F64["atol"]
+                         + ROLLOUT_TOL_F64["rtol"] * float(sc.max()))
+    else:
+        out_64 = rollout_reference(knot64, *to_double(args), N_ALPHAS)
+        yard = rollout_errors(out_r, out_64)
+        ok = rec["nonfinite_rows_agree_share"] >= ROLLOUT_NONFINITE_AGREE
+        agree = torch.ones(rec["B"], dtype=torch.bool, device=args[1].device)
+        rel = {}
+        for n, (e, sc) in errs.items():
+            sc = sc.clamp_min(1e-30)
+            rel_k, rel_p = e / sc, yard[n][0] / sc
+            agree &= rel_k <= ROLLOUT_F32_FACTOR * rel_p + ROLLOUT_F32_FLOOR
+            rel[n] = [float(rel_k.median()), float(rel_p.median()),
+                      float(rel_k.max()), float(rel_p.max())]
+            ok = ok and (rel[n][0] <= ROLLOUT_F32_FACTOR * rel[n][1]
+                         + ROLLOUT_F32_FLOOR)
+        rec["rel_err_median_kernel_vs_plain32__plain32_vs_plain64__max_max"] = rel
+        rec["agree_share"] = float(agree.double().mean())
+        ok = ok and rec["agree_share"] >= ROLLOUT_MIN_AGREE_F32
+    rec["ok"] = bool(ok)
+    return rec
+
+
 def phase_rollout_kernel():
     """The rollout kernel against its plain version on the card at N=40,
-    A=10, B=1024: seeded inputs and the main path's own first-iteration
-    inputs, float64 and float32; then its time against the plain version's
-    at both batch sizes.  Returns the rollout entry of the `kernels` line."""
+    A=10, B=1024, all four outputs (xs_try, us_try, cost_try and the gap sums
+    dv_try): seeded inputs and the main path's own first-iteration inputs,
+    float64 and float32, and the free-space instantiation at float64; the
+    seeded batch also as launches of 1 and of 3 problems (each launch's
+    results equal to the whole batch's bit for bit, the pooled outputs held
+    to the same gates); then ptxas' registers, stack and spills (the float32
+    build must not spill), the resident blocks an SM and the waves they make,
+    and its time against the plain version's at B=1, 256 and 1024.  Returns
+    the rollout entry of the `kernels` line."""
     B = BATCHES[-1]
     checks, failures = [], []
+    knot64 = flagship_knot(torch.float64)
 
-    def check(label, knot, consts, args, knot64=None):
-        f64 = args[1].dtype == torch.float64
-        out_k = rollout(knot, consts, *args, N_ALPHAS)
+    def check(label, knot, consts, args, out_k=None):
+        if out_k is None:
+            out_k = rollout(knot, consts, *args, N_ALPHAS)
         torch.cuda.synchronize()
-        out_r = rollout_reference(knot, *args, N_ALPHAS)
-        torch.cuda.synchronize()
-        errs = rollout_errors(out_k, out_r)
-        nf_k, nf_r = (~torch.isfinite(o[2]) for o in (out_k, out_r))
-        rec = {"case": label, "B": int(args[1].shape[0]), "N": int(args[2].shape[1]),
-               "A": N_ALPHAS, "dtype": "float64" if f64 else "float32",
-               "nonfinite_cost_rows": int(nf_r.sum()),
-               "nonfinite_rows_agree_share": float((nf_k == nf_r).double().mean()),
-               "max_abs_err": {n: float(e.max()) for n, (e, _) in errs.items()},
-               "scale": {n: float(sc.max()) for n, (_, sc) in errs.items()}}
-        if f64:
-            ok = all(bool((torch.isfinite(a) == torch.isfinite(b)).all())
-                     for a, b in zip(out_k, out_r))
-            rec["nonfinite_sets_equal"] = ok
-            for n, (e, sc) in errs.items():
-                ok = ok and (float(e.max()) <= ROLLOUT_TOL_F64["atol"]
-                             + ROLLOUT_TOL_F64["rtol"] * float(sc.max()))
-        else:
-            out_64 = rollout_reference(knot64, *to_double(args), N_ALPHAS)
-            yard = rollout_errors(out_r, out_64)
-            ok = rec["nonfinite_rows_agree_share"] >= ROLLOUT_NONFINITE_AGREE
-            agree = torch.ones(rec["B"], dtype=torch.bool, device="cuda")
-            rel = {}
-            for n, (e, sc) in errs.items():
-                sc = sc.clamp_min(1e-30)
-                rel_k, rel_p = e / sc, yard[n][0] / sc
-                agree &= rel_k <= ROLLOUT_F32_FACTOR * rel_p + ROLLOUT_F32_FLOOR
-                rel[n] = [float(rel_k.median()), float(rel_p.median()),
-                          float(rel_k.max()), float(rel_p.max())]
-                ok = ok and (rel[n][0] <= ROLLOUT_F32_FACTOR * rel[n][1]
-                             + ROLLOUT_F32_FLOOR)
-            rec["rel_err_median_kernel_vs_plain32__plain32_vs_plain64__max_max"] = rel
-            rec["agree_share"] = float(agree.double().mean())
-            ok = ok and rec["agree_share"] >= ROLLOUT_MIN_AGREE_F32
-        rec["ok"] = bool(ok)
+        rec = {"case": label, **rollout_gate(knot, args, out_k, knot64)}
         checks.append(rec)
-        if not ok:
+        if not rec["ok"]:
             failures.append(label + "/" + rec["dtype"])
         return rec
 
-    knot64 = make_augmented_knot(flagship(torch.float64)[0], flagship_weights(), surface=True)
+    def same_bits(out_small, out_full):
+        n = out_small[0].shape[0]
+        return all(bool(((a == b[:n]) | (torch.isnan(a) & torch.isnan(b[:n]))).all())
+                   for a, b in zip(out_small, out_full))
+
     for dtype in (torch.float64, torch.float32):
         knot, consts, args = seeded_rollout_args(B, HORIZON, dtype, 7)
-        check("seeded", knot, consts, args, knot64)
+        out_full = rollout(knot, consts, *args, N_ALPHAS)
+        check("seeded", knot, consts, args, out_full)
+        for k in SMALL_BATCHES:
+            n = B // k * k
+            outs = [rollout(knot, consts, *rollout_slice(args, i, i + k), N_ALPHAS)
+                    for i in range(0, n, k)]
+            out_k = tuple(torch.cat(f) for f in zip(*outs))
+            rec = check(f"seeded_launches_of_{k}", knot, consts, rollout_slice(args, 0, n),
+                        out_k)
+            rec["launch_B"] = k
+            rec["same_bits_as_full_batch"] = same_bits(out_k, out_full)
+            if not rec["same_bits_as_full_batch"]:
+                rec["ok"] = False
+                failures.append(rec["case"] + "/" + rec["dtype"] + "/bits")
+    knot, consts, args = seeded_rollout_args(B, HORIZON, torch.float64, 7)
+    free = make_augmented_knot(knot.model, flagship_weights(), surface=False)
+    check("seeded_free_space", free,
+          pack_knot_consts(free.model, free.W, free.surface, torch.float64).cuda(), args)
     main_rec = None
     for dtype in (torch.float64, torch.float32):
         knot, consts, args = main_path_rollout_args(B, dtype)
-        rec = check("main_path_first_iteration", knot, consts, args, knot64)
+        rec = check("main_path_first_iteration", knot, consts, args)
         if dtype == torch.float32:
             main_rec = rec
 
+    # registers, stack and spills as ptxas reports them, and the residency
+    # they and the shared memory allow; the float32 build must not spill
+    usage = {}
+    for rec in ptxas_usage(_cuda_build.build_all().logs["rollout"]):
+        if "rollout_kernel" in rec["function"]:
+            key = ("float32" if "IfL" in rec["function"] else "float64") + (
+                "_contact" if "Lb1E" in rec["function"] else "_free")
+            usage[key] = rec
+    resident = {"float32": rollout_resident_blocks_per_sm(torch.float32, N_ALPHAS),
+                "float64": rollout_resident_blocks_per_sm(torch.float64, N_ALPHAS)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    spill32 = sum(usage.get(k, {}).get("spill_bytes_with_callees", 1)
+                  for k in ("float32_contact", "float32_free"))
+    per_block = rollout_problems_per_block(N_ALPHAS)
+    blocks = {b: -(-b // per_block) for b in (1,) + BATCHES}
+    residency = {"ptxas": usage, "resident_blocks_per_sm": resident, "sms": sms,
+                 "problems_per_block": per_block, "blocks": blocks,
+                 "waves_float32": {b: n / (resident["float32"] * sms)
+                                   for b, n in blocks.items()},
+                 "float32_spill_bytes": spill32}
+
     timing = {}
-    for b in BATCHES:
+    for b in (1,) + BATCHES:
         knot, consts, args = main_path_rollout_args(b)
         outs = rollout(knot, consts, *args, N_ALPHAS)
         ms = cuda_time_ms(lambda: rollout(knot, consts, *args, N_ALPHAS))
@@ -774,14 +878,15 @@ def phase_rollout_kernel():
                      "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
                      "bytes_ms": byte_ms, "operations_ms": flop_ms}
     emit({"phase": "kernels", "kernel": "rollout", "checks": checks,
-          "timing_float32": timing})
+          "timing_float32": timing, **residency})
     if failures:
         raise RuntimeError(f"rollout kernel disagrees with its plain version: {failures}")
+    if spill32 != 0:
+        raise RuntimeError(f"rollout kernel: the float32 build spills ({usage})")
     t = timing[B]
     return {"name": "rollout", "route": "cuda",
             "source": "ffmpc_tpu_torch/csrc/rollout.cu",
             "replaces": "ffmpc_tpu/solver/rollout_pallas.py:63",
-            "launches": None,
             "max_abs_err": max(main_rec["max_abs_err"].values()),
             "max_abs_err_by_field": main_rec["max_abs_err"],
             "max_rel_err_by_field": {n: e / max(main_rec["scale"][n], 1e-30)
@@ -790,7 +895,9 @@ def phase_rollout_kernel():
             "bound_by": t["bound_by"], "library_ms": None,
             "shape": {"B": B, "N": HORIZON, "A": N_ALPHAS, "nx": NX, "nu": NU,
                       "dtype": "float32"},
-            "by_batch": {str(b): timing[b] for b in BATCHES}}
+            "by_batch": {str(b): timing[b] for b in (1,) + BATCHES},
+            "resident_blocks_per_sm": resident, "ptxas": usage,
+            "waves_float32": residency["waves_float32"][B]}
 
 
 DIFF_TERM_FIELDS = ("cost_T", "LxT", "LxxT")
@@ -843,8 +950,9 @@ def seeded_diff_args(B, N, dtype, seed):
     """Seeded derivative-pass inputs: the states, controls and references of
     the seeded rollout inputs (states around the neutral pose, controls around
     gravity torque, 2 Nm apart)."""
-    knot, consts, args = seeded_rollout_args(B, N, dtype, seed)
-    _, xs, us, _, _, _, _, refs_run, ref_T = args
+    knot, _, args = seeded_rollout_args(B, N, dtype, seed)
+    _, xs, us, _, _, _, _, _, refs_run, ref_T = args
+    consts = pack_knot_consts(knot.model, knot.W, knot.surface, dtype)
     return knot, consts, (xs, us, refs_run, ref_T)
 
 
@@ -992,7 +1100,6 @@ def phase_diff_kernel():
             "source": "ffmpc_tpu_torch/csrc/knot_diff.cu",
             "replaces": "ffmpc_tpu/solver/diff_pallas.py:159",
             "also_replaces": "ffmpc_tpu/solver/diff_pallas.py:55",
-            "launches": None,
             "max_abs_err": max(main_rec["max_abs_err"].values()),
             "max_abs_err_by_field": main_rec["max_abs_err"],
             "max_rel_err_by_field": {n: e / main_rec["scale"][n]
@@ -1279,6 +1386,7 @@ def phase_stages():
     rr, rT, xs, us = it["refs_run"], it["ref_T"], it["xs"], it["us"]
     reg = torch.full((B,), 1e-9, dtype=torch.float32, device="cuda")
     consts = pack_knot_consts(knot.model, knot.W, knot.surface, torch.float32)
+    consts_card = consts.cuda()  # the rollout's, as fddp.solve copies them
     state = {}
 
     def diff_kernel():
@@ -1304,18 +1412,20 @@ def phase_stages():
     diff_kernel()
     bw()
     K, kff, _, dg, dq, _, w_all = state["out"]
-    r_args = (it["x0"], xs, us, K, kff, bi.fs, bi.feasible, rr, rT)
+    r_args = (it["x0"], xs, us, K, kff, bi.fs, w_all, bi.feasible, rr, rT)
 
     def ro_kernel():
-        state["try"] = rollout(knot, consts, *r_args, N_ALPHAS)
+        state["try"] = rollout(knot, consts_card, *r_args, N_ALPHAS)
 
     def ro_plain():
         rollout_reference(knot, *r_args, N_ALPHAS)
 
     def accept():
-        xs_try, us_try, cost_try = state["try"]
-        accept_step(FDDPSettings(), xs, us, bi.cost_cur, xs_try, us_try, cost_try,
-                    w_all, dg, dq)
+        xs_try, us_try, cost_try, dv = state["try"]
+        accept_step(FDDPSettings(), xs, us, bi.cost_cur, xs_try, us_try, cost_try, dv, dg, dq)
+
+    def gap_sum_plain():
+        gap_sum(xs, state["try"][0], w_all)
 
     def final_cost():
         _, costs = knot.calc(rr, xs[:, :-1], us)
@@ -1338,7 +1448,8 @@ def phase_stages():
               "backward_inputs": host_ms(glue),
               "backward_box": host_ms(bw), "backward_box_reference": host_ms(bw_plain),
               "rollout": host_ms(ro_kernel), "rollout_reference": host_ms(ro_plain),
-              "accept_step": host_ms(accept), "final_cost_per_solve": host_ms(final_cost)}
+              "accept_step": host_ms(accept), "gap_sum_reference": host_ms(gap_sum_plain),
+              "final_cost_per_solve": host_ms(final_cost)}
     plain_diff = stages["diff_reference_running"] + stages["diff_reference_terminal"]
     per_iter = {
         "kernel": stages["knot_diff"] + stages["backward_box"] + stages["rollout"],
@@ -1350,6 +1461,8 @@ def phase_stages():
                      "accept_step")
     emit({"phase": "stages", "B": B, "N": HORIZON, "dtype": "float32",
           "ms": stages, "iteration_ms_by_mode": per_iter,
+          "device": {"accept_step": device_figures(accept),
+                     "gap_sum_reference": device_figures(gap_sum_plain)},
           "share_of_kernel_mode_iteration": {
               k: stages[k] / per_iter["kernel"] for k in kernel_stages},
           "final_cost_share_of_kernel_mode_solve": stages["final_cost_per_solve"] / (

@@ -2,8 +2,8 @@
 // the 7-joint Panda (forward kinematics with the frame Jacobian, bias forces,
 // mass matrix with armature, unrolled 7x7 Cholesky, free dynamics and the
 // damped 1-D normal-contact KKT), the residual stack with its activations and
-// the cost assembly, and the line-search rollout of one (problem, step length)
-// over the whole horizon.
+// the cost assembly, the knot's derivative parts, and the line-search rollout
+// of one (problem, step length) on a group of 8 lanes.
 //
 // Counterpart of ffmpc_tpu/core/scalarops.py (chol, chol_solve),
 // ffmpc_tpu/core/scalar_chain.py (chain_consts, fk_chain, chain_rnea,
@@ -13,11 +13,10 @@
 // dynamics,spatial}.py and ocp/action.py, which is what the kernel is held
 // against: the same formulas in the same order wherever that is cheap.
 //
-// The chain's functions (Cholesky, forward kinematics, bias forces, log3) are
-// written over a scalar template parameter S for the variables, with the
-// model constants in T: the contact drift gamma = d/dt (J v) runs the forward
-// kinematics on Dual<T>, the forward-mode tangent that torch.func.jvp pushes
-// in the plain version.
+// The chain's functions (Cholesky, forward kinematics, log3) are written over
+// a scalar template parameter S for the variables, with the model constants in
+// T: the derivative columns run log3 on Dual<T>, the forward-mode tangent that
+// torch.func.jvp pushes in the plain version.
 //
 // Constant folding the TPU kernel did at trace time happens here at run time
 // from the cost table: a term with a zero scale, a zero row weight or a
@@ -103,7 +102,41 @@ FFMPC_HD float sin_(float x) { return sinf(x); }
 FFMPC_HD double sin_(double x) { return sin(x); }
 FFMPC_HD float cos_(float x) { return cosf(x); }
 FFMPC_HD double cos_(double x) { return cos(x); }
+// sin and cos of one argument, with one range reduction on the device.
+FFMPC_HD void sincos_(float x, float& s, float& c) {
+#if defined(__CUDA_ARCH__)
+  sincosf(x, &s, &c);
+#else
+  s = sinf(x);
+  c = cosf(x);
+#endif
+}
+FFMPC_HD void sincos_(double x, double& s, double& c) {
+#if defined(__CUDA_ARCH__)
+  sincos(x, &s, &c);
+#else
+  s = sin(x);
+  c = cos(x);
+#endif
+}
 FFMPC_HD float sqrt_(float x) { return sqrtf(x); }
+// 1 / sqrt(x): the hardware's reciprocal square root on the device (float32:
+// one instruction, within 2 ulp; float64 within 1 ulp), the quotient on the
+// host.
+FFMPC_HD float rsqrt_(float x) {
+#if defined(__CUDA_ARCH__)
+  return rsqrtf(x);
+#else
+  return 1.0f / sqrtf(x);
+#endif
+}
+FFMPC_HD double rsqrt_(double x) {
+#if defined(__CUDA_ARCH__)
+  return rsqrt(x);
+#else
+  return 1.0 / sqrt(x);
+#endif
+}
 FFMPC_HD double sqrt_(double x) { return sqrt(x); }
 FFMPC_HD float acos_(float x) { return acosf(x); }
 FFMPC_HD double acos_(double x) { return acos(x); }
@@ -328,115 +361,6 @@ FFMPC_HD void fk_chain(const KnotConstants<T>& C, const S (&cq)[kNQ],
     }
 }
 
-// Recursive Newton-Euler (dynamics.py::rnea with gravity and joint terms,
-// scalar_chain.py::chain_rnea): the joint torques that realize acceleration
-// a at (q, v), armature a + damping v included.  With EE_ACC it also gives
-// the tool's classical linear acceleration in the world frame without
-// gravity, Jp a + dJp/dt v (the quantity the contact row differentiates),
-// from the last link's world rotation R_last: gravity enters the linear
-// recursion only through rotations, so it is removed at the end.
-template <typename S, typename T, bool EE_ACC>
-FFMPC_HD void rnea(const KnotConstants<T>& C, const S (&cq)[kNQ], const S (&sq)[kNQ],
-                   const S (&v)[kNQ], const T (&a)[kNQ], S (&tau)[kNQ],
-                   const S (*R_last)[3] = nullptr, S* ee_acc = nullptr) {
-  S w[3] = {S(0), S(0), S(0)}, wd[3] = {S(0), S(0), S(0)}, ac[3];
-  // base linear acceleration (gravity trick): base_rot^T (-gravity)
-  for (int r = 0; r < 3; ++r)
-    ac[r] = C.base_rot[0][r] * (-C.gravity[0]) + C.base_rot[1][r] * (-C.gravity[1]) +
-            C.base_rot[2][r] * (-C.gravity[2]);
-  S ws[kNQ][3], wds[kNQ][3], acs[kNQ][3];
-  for (int i = 0; i < kNQ; ++i) {
-    S R[3][3];
-    joint_rot<S, T>(C, i, cq[i], sq[i], R);
-    const T* pj = C.j_pos[i];
-    const S qd = v[i];
-    S w_p[3], Rt_wd[3], t0[3], t1[3], t2[3], arg[3];
-    for (int r = 0; r < 3; ++r) {
-      w_p[r] = R[0][r] * w[0] + R[1][r] * w[1] + R[2][r] * w[2];
-      Rt_wd[r] = R[0][r] * wd[0] + R[1][r] * wd[1] + R[2][r] * wd[2];
-    }
-    // ac <- R^T (ac + wd x p + w x (w x p))
-    S p3[3] = {S(pj[0]), S(pj[1]), S(pj[2])};
-    cross3<S>(wd, p3, t0);
-    cross3<S>(w, p3, t1);
-    cross3<S>(w, t1, t2);
-    for (int r = 0; r < 3; ++r) arg[r] = ac[r] + t0[r] + t2[r];
-    for (int r = 0; r < 3; ++r)
-      ac[r] = R[0][r] * arg[0] + R[1][r] * arg[1] + R[2][r] * arg[2];
-    // wd <- R^T wd + w_p x (qd ez) + qdd ez; w <- w_p + qd ez
-    wd[0] = Rt_wd[0] + w_p[1] * qd;
-    wd[1] = Rt_wd[1] - w_p[0] * qd;
-    wd[2] = Rt_wd[2] + a[i];
-    w[0] = w_p[0];
-    w[1] = w_p[1];
-    w[2] = w_p[2] + qd;
-    for (int r = 0; r < 3; ++r) {
-      ws[i][r] = w[r];
-      wds[i][r] = wd[r];
-      acs[i][r] = ac[r];
-    }
-  }
-  if constexpr (EE_ACC) {
-    S t[3] = {S(C.ee_pos[0]), S(C.ee_pos[1]), S(C.ee_pos[2])}, t0[3], t1[3], t2[3], a_ee[3];
-    cross3<S>(wd, t, t0);
-    cross3<S>(w, t, t1);
-    cross3<S>(w, t1, t2);
-    for (int r = 0; r < 3; ++r) a_ee[r] = ac[r] + t0[r] + t2[r];
-    for (int r = 0; r < 3; ++r)
-      ee_acc[r] = R_last[r][0] * a_ee[0] + R_last[r][1] * a_ee[1] +
-                  R_last[r][2] * a_ee[2] + C.gravity[r];
-  }
-  S f[3] = {S(0), S(0), S(0)}, n[3] = {S(0), S(0), S(0)};
-  for (int i = kNQ - 1; i >= 0; --i) {
-    S c[3] = {S(C.com[i][0]), S(C.com[i][1]), S(C.com[i][2])};
-    S t0[3], t1[3], t2[3], a_c[3], F[3], Iw[3], Nn[3], t3[3], t4[3];
-    cross3<S>(wds[i], c, t0);
-    cross3<S>(ws[i], c, t1);
-    cross3<S>(ws[i], t1, t2);
-    for (int r = 0; r < 3; ++r) {
-      a_c[r] = acs[i][r] + t0[r] + t2[r];
-      F[r] = C.mass[i] * a_c[r];
-    }
-    for (int r = 0; r < 3; ++r) {
-      Iw[r] = ws[i][0] * C.inertia[i][r][0] + ws[i][1] * C.inertia[i][r][1] +
-              ws[i][2] * C.inertia[i][r][2];
-      Nn[r] = wds[i][0] * C.inertia[i][r][0] + wds[i][1] * C.inertia[i][r][1] +
-              wds[i][2] * C.inertia[i][r][2];
-    }
-    cross3<S>(ws[i], Iw, t3);
-    cross3<S>(c, F, t4);
-    S f_i[3], n_i[3];
-    for (int r = 0; r < 3; ++r) {
-      f_i[r] = F[r] + f[r];
-      n_i[r] = (Nn[r] + t3[r]) + t4[r] + n[r];
-    }
-    tau[i] = n_i[2] + C.armature[i] * a[i] + C.damping[i] * v[i];
-    if (i > 0) {
-      S R[3][3];
-      joint_rot<S, T>(C, i, cq[i], sq[i], R);
-      S fp[3], Rn[3], t5[3];
-      for (int r = 0; r < 3; ++r) {
-        fp[r] = R[r][0] * f_i[0] + R[r][1] * f_i[1] + R[r][2] * f_i[2];
-        Rn[r] = R[r][0] * n_i[0] + R[r][1] * n_i[1] + R[r][2] * n_i[2];
-      }
-      S pj[3] = {S(C.j_pos[i][0]), S(C.j_pos[i][1]), S(C.j_pos[i][2])};
-      cross3<S>(pj, fp, t5);
-      for (int r = 0; r < 3; ++r) {
-        n[r] = Rn[r] + t5[r];
-        f[r] = fp[r];
-      }
-    }
-  }
-}
-
-// Bias forces b(q, v) = rnea(q, v, 0): Coriolis, gravity and joint damping.
-template <typename S, typename T>
-FFMPC_HD void bias_forces(const KnotConstants<T>& C, const S (&cq)[kNQ],
-                          const S (&sq)[kNQ], const S (&v)[kNQ], S (&tau)[kNQ]) {
-  const T zero[kNQ] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
-  rnea<S, T, false>(C, cq, sq, v, zero, tau);
-}
-
 // SO(3) log map (core/spatial.py::log3), small-angle branch included.  On
 // Dual<T> the branch is taken on the primal test, as torch.where does, and
 // the tangent goes through the clamp as torch.clamp's does.
@@ -497,201 +421,6 @@ FFMPC_HD void add_term(const KnotConstants<T>& C, int slot, int row0,
   cost = cost + s * (T(0.5) * sum);
 }
 
-// ---------------------------------------------------------------------------
-// the knot (ocp/action.py::make_augmented_knot calc / term_calc)
-// ---------------------------------------------------------------------------
-
-// One augmented knot: y = (q, v, tau), control w.  Writes ynext and returns
-// the knot's cost; at the terminal knot (w = 0) the running-only terms drop
-// out.  ref: the knot's 57 reference values, read through `at(k)`.
-template <typename T, bool SURFACE, typename Ref>
-FFMPC_HD T knot_calc(const KnotConstants<T>& C, const Ref& ref, const T (&y)[kNY],
-                     const T (&w)[kNW], bool terminal, T (&ynext)[kNY]) {
-  T q[kNQ], v[kNQ], tau[kNQ], cq[kNQ], sq[kNQ];
-  for (int i = 0; i < kNQ; ++i) {
-    q[i] = y[i];
-    v[i] = y[7 + i];
-    tau[i] = y[14 + i];
-    cq[i] = cos_(q[i]);
-    sq[i] = sin_(q[i]);
-  }
-
-  T b[kNQ];
-  bias_forces<T, T>(C, cq, sq, v, b);
-
-  T p[kNQ][3], axis[kNQ][3], ee_R[3][3], ee_p[3], M[kNQ][kNQ];
-  fk_chain<T, T, true>(C, cq, sq, p, axis, ee_R, ee_p, M);
-
-  // frame Jacobian at the tool origin: Jp[:, j] = axis_j x (ee_p - p_j)
-  T Jp[3][kNQ];
-  for (int j = 0; j < kNQ; ++j) {
-    T r[3] = {ee_p[0] - p[j][0], ee_p[1] - p[j][1], ee_p[2] - p[j][2]};
-    T c[3];
-    cross3<T>(axis[j], r, c);
-    Jp[0][j] = c[0];
-    Jp[1][j] = c[1];
-    Jp[2][j] = c[2];
-  }
-
-  T L[kNQ][kNQ], rhs[kNQ], Minv_tau[kNQ], acc[kNQ];
-  chol_factor<T, kNQ>(M, L);
-  for (int i = 0; i < kNQ; ++i) rhs[i] = tau[i] - b[i];
-  chol_solve<T, kNQ>(L, rhs, Minv_tau);
-
-  T force = T(0);
-  if constexpr (SURFACE) {
-    // contact drift gamma = d/dt (Jc v) at fixed v: the tangent of the z row
-    // of Jp(q) v along qdot = v (forward kinematics on dual numbers)
-    Dual<T> cqd[kNQ], sqd[kNQ];
-    for (int i = 0; i < kNQ; ++i) {
-      const Dual<T> qi(q[i], v[i]);
-      cqd[i] = cos_(qi);
-      sqd[i] = sin_(qi);
-    }
-    Dual<T> pd[kNQ][3], axd[kNQ][3], eeRd[3][3], eepd[3], Md[kNQ][kNQ];
-    fk_chain<Dual<T>, T, false>(C, cqd, sqd, pd, axd, eeRd, eepd, Md);
-    T gamma = T(0);
-    for (int j = 0; j < kNQ; ++j) {
-      const Dual<T> rx = eepd[0] - pd[j][0], ry = eepd[1] - pd[j][1];
-      const Dual<T> jz = axd[j][0] * ry - axd[j][1] * rx;
-      gamma = gamma + jz.d * v[j];
-    }
-
-    T Jc[kNQ], Minv_Jt[kNQ];
-    for (int j = 0; j < kNQ; ++j) Jc[j] = Jp[2][j];
-    chol_solve<T, kNQ>(L, Jc, Minv_Jt);
-    T vel_c = T(0), S_ = T(0), JMt = T(0);
-    for (int j = 0; j < kNQ; ++j) {
-      vel_c = vel_c + Jc[j] * v[j];
-      S_ = S_ + Jc[j] * Minv_Jt[j];
-      JMt = JMt + Jc[j] * Minv_tau[j];
-    }
-    S_ = S_ + C.damping_c;
-    const T gap = ee_p[2] - (ref.at(2) - C.z_press);
-    const T a_des = (-gamma - C.kp * gap) - C.kd * vel_c;
-    // 1x1 Cholesky as chol_factor / chol_solve compute it
-    const T LS = S_ / sqrt_(S_);
-    force = ((a_des - JMt) / LS) / LS;
-    for (int i = 0; i < kNQ; ++i) acc[i] = Minv_tau[i] + Minv_Jt[i] * force;
-  } else {
-    for (int i = 0; i < kNQ; ++i) acc[i] = Minv_tau[i];
-  }
-
-  // semi-implicit Euler on (q, v); low-pass filter on the torque state
-  for (int i = 0; i < kNQ; ++i) {
-    const T vn = v[i] + C.dt * acc[i];
-    ynext[7 + i] = vn;
-    ynext[i] = q[i] + C.dt * vn;
-    ynext[14 + i] = C.lpf_alpha * tau[i] + C.lpf_beta * w[i];
-  }
-
-  // tool velocity (linear, angular)
-  T vel6[6];
-  for (int a = 0; a < 3; ++a) {
-    T lin = T(0), ang = T(0);
-    for (int j = 0; j < kNQ; ++j) {
-      lin = lin + Jp[a][j] * v[j];
-      ang = ang + axis[j][a] * v[j];
-    }
-    vel6[a] = lin;
-    vel6[3 + a] = ang;
-  }
-
-  // ---- residuals and costs, in the spec's order
-  T cost = T(0);
-  {
-    T r[14];
-    for (int i = 0; i < 14; ++i) r[i] = y[i] - ref.at(6 + i);
-    add_term<T, 14>(C, kPosture, kRowPosture, terminal, r, cost);
-  }
-  {
-    T r[14];
-    for (int i = 0; i < 14; ++i) r[i] = y[i];
-    add_term<T, 14>(C, kVDamp, kRowVDamp, terminal, r, cost);
-  }
-  {
-    T r[14];
-    for (int i = 0; i < 14; ++i) r[i] = y[i] - C.q_soft_ref[i];
-    add_term<T, 14>(C, kQSoft, kRowQSoft, terminal, r, cost);
-  }
-  {
-    // log3(R_des^T ee_R)
-    T Rrel[3][3], r[3];
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j)
-        Rrel[i][j] = ref.at(27 + 0 * 3 + i) * ee_R[0][j] +
-                     ref.at(27 + 1 * 3 + i) * ee_R[1][j] +
-                     ref.at(27 + 2 * 3 + i) * ee_R[2][j];
-    log3<T>(Rrel, r);
-    add_term<T, 3>(C, kEeOri, kRowEeOri, terminal, r, cost);
-  }
-  add_term<T, 6>(C, kWDamp, kRowWDamp, terminal, vel6, cost);
-  if (!terminal) {
-    T r[7];
-    for (int i = 0; i < 7; ++i) r[i] = tau[i] - ref.at(20 + i);
-    add_term<T, 7>(C, kTauReg, kRowTauReg, terminal, r, cost);
-    add_term<T, 7>(C, kTauSoft, kRowTauSoft, terminal, tau, cost);
-  }
-  if constexpr (!SURFACE) {
-    T r[3] = {ee_p[0] - ref.at(0), ee_p[1] - ref.at(1), ee_p[2] - ref.at(2)};
-    add_term<T, 3>(C, kEePos, kRowEePos, terminal, r, cost);
-  } else {
-    {
-      T r[3] = {ee_p[0] - ref.at(0), ee_p[1] - ref.at(1), ee_p[2] - ref.at(2)};
-      add_term<T, 3>(C, kEeXy, kRowEeXy, terminal, r, cost);
-    }
-    {
-      T r[6] = {vel6[0] - ref.at(3), vel6[1] - ref.at(4), vel6[2] - T(0),
-                vel6[3] - T(0), vel6[4] - T(0), vel6[5] - T(0)};
-      add_term<T, 6>(C, kEeVxy, kRowEeVxy, terminal, r, cost);
-    }
-    {
-      T r[3] = {ee_p[0] - ref.at(0), ee_p[1] - ref.at(1),
-                ee_p[2] - (ref.at(2) - C.z_press)};
-      add_term<T, 3>(C, kPlaneZ, kRowPlaneZ, terminal, r, cost);
-    }
-    add_term<T, 6>(C, kVzDamp, kRowVzDamp, terminal, vel6, cost);
-    {
-      T r[1] = {force};
-      add_term<T, 1>(C, kUnilateral, kRowUnilateral, terminal, r, cost);
-    }
-    {
-      T r[1] = {force - C.fn_des};
-      add_term<T, 1>(C, kFnTrack, kRowFnTrack, terminal, r, cost);
-    }
-  }
-  {
-    T r[21];
-    for (int i = 0; i < 21; ++i) r[i] = y[i] - ref.at(36 + i);
-    add_term<T, 21>(C, kYReg, kRowYReg, terminal, r, cost);
-  }
-  add_term<T, 7>(C, kWReg, kRowWReg, terminal, w, cost);
-  add_term<T, 7>(C, kWSoft, kRowWSoft, terminal, w, cost);
-  return cost;
-}
-
-// ---------------------------------------------------------------------------
-// the line-search rollout of one (problem, step length)
-// ---------------------------------------------------------------------------
-
-// Batch-leading arrays exactly as the solver holds them (all contiguous).
-template <typename T>
-struct RolloutArgs {
-  const T* x0;        // (B, nx)
-  const T* xs;        // (B, N+1, nx)
-  const T* us;        // (B, N, nu)
-  const T* K;         // (B, N, nu, nx)
-  const T* kff;       // (B, N, nu)
-  const T* fs;        // (B, N+1, nx)
-  const unsigned char* feasible;  // (B,)
-  const T* ref[6];    // refs_run fields (B, N, k), ProblemRefs order
-  const T* ref_T[6];  // ref_T fields (B, k)
-  T* xs_try;          // (B, A, N+1, nx)
-  T* us_try;          // (B, A, N, nu)
-  T* cost_try;        // (B, A)
-  int B, N, A;
-};
-
 // A knot's references: value k of the 57-value row (p_ref 0-2, v_ref 3-5,
 // x_reg_ref 6-19, tau_ref 20-26, R_des 27-35 row-major, y_ref 36-56), read
 // from the six field arrays at row `row`.
@@ -708,53 +437,6 @@ struct RefView {
     return fields[5][row * 21 + (k - 36)];
   }
 };
-
-// fddp.py::forward for step length alpha_a = 2^-a of problem b:
-//   u_t = clip(u_nom_t - alpha kff_t - K_t (x_t - x_nom_t)),
-//   x_{t+1} = f(x_t, u_t) + (alpha - 1)(1 - feasible) fs_{t+1},
-// the running costs summed over the horizon, then the terminal cost.
-template <typename T, bool SURFACE>
-FFMPC_HD void rollout_one(const KnotConstants<T>& C, const RolloutArgs<T>& a,
-                          int b, int ai) {
-  const int N = a.N, A = a.A;
-  T alpha = T(1);  // 2^-ai, exact
-  for (int k = 0; k < ai; ++k) alpha = alpha * T(0.5);
-  const T gap_scale = a.feasible[b] ? T(0) : alpha - T(1);
-  T x[kNY];
-  for (int i = 0; i < kNY; ++i) x[i] = a.x0[(size_t)b * kNY + i];
-  T* xs_out = a.xs_try + ((size_t)b * A + ai) * (size_t)(N + 1) * kNY;
-  T* us_out = a.us_try + ((size_t)b * A + ai) * (size_t)N * kNW;
-  T run_cost = T(0);
-  for (int t = 0; t < N; ++t) {
-    const size_t bt = (size_t)b * N + t;
-    const T* x_nom = a.xs + ((size_t)b * (N + 1) + t) * kNY;
-    const T* u_nom = a.us + bt * kNW;
-    const T* Kt = a.K + bt * kNW * kNY;
-    const T* kt = a.kff + bt * kNW;
-    T dx[kNY], u[kNW], ynext[kNY];
-    for (int i = 0; i < kNY; ++i) {
-      dx[i] = x[i] - x_nom[i];
-      xs_out[(size_t)t * kNY + i] = x[i];
-    }
-    for (int j = 0; j < kNW; ++j) {
-      T kdx = T(0);
-      for (int i = 0; i < kNY; ++i) kdx = kdx + Kt[j * kNY + i] * dx[i];
-      const T uj = (u_nom[j] - alpha * kt[j]) - kdx;
-      u[j] = clamp_nan<T>(uj, C.u_lb[j], C.u_ub[j]);
-      us_out[(size_t)t * kNW + j] = u[j];
-    }
-    RefView<T> ref{a.ref, bt};
-    run_cost = run_cost + knot_calc<T, SURFACE>(C, ref, x, u, false, ynext);
-    const T* fs_next = a.fs + ((size_t)b * (N + 1) + t + 1) * kNY;
-    for (int i = 0; i < kNY; ++i) x[i] = ynext[i] + gap_scale * fs_next[i];
-  }
-  for (int i = 0; i < kNY; ++i) xs_out[(size_t)N * kNY + i] = x[i];
-  const T w0[kNW] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
-  T ydummy[kNY];
-  RefView<T> refT{a.ref_T, (size_t)b};
-  const T cost_T = knot_calc<T, SURFACE>(C, refT, x, w0, true, ydummy);
-  a.cost_try[(size_t)b * A + ai] = run_cost + cost_T;
-}
 
 // ---------------------------------------------------------------------------
 // the knot's derivatives (ocp/action.py diff / term_diff)
@@ -1812,6 +1494,821 @@ inline void diff_knot_serial(const KnotConstants<T>& C, const DiffArgs<T>& a, in
   }
   for (int j = 0; j < kNW; ++j) a.Lu[k * kNW + j] = rec[kRecGu + j];
   for (int e = 0; e < kNW * kNW; ++e) a.Luu[k * kNW * kNW + e] = luu_entry<T>(rec, e);
+}
+
+// ---------------------------------------------------------------------------
+// the line-search rollout on a group of 8 lanes (solver/fddp.py forward,
+// ocp/action.py calc / term_calc)
+// ---------------------------------------------------------------------------
+
+// Batch-leading arrays exactly as the solver holds them (all contiguous).
+template <typename T>
+struct RolloutArgs {
+  const T* consts;    // KnotConstants (device memory in the kernel)
+  const T* x0;        // (B, nx)
+  const T* xs;        // (B, N+1, nx)
+  const T* us;        // (B, N, nu)
+  const T* K;         // (B, N, nu, nx)
+  const T* kff;       // (B, N, nu)
+  const T* fs;        // (B, N+1, nx)
+  const T* w_all;     // (B, N+1, nx) the backward sweep's gap products
+  const unsigned char* feasible;  // (B,)
+  const T* ref[6];    // refs_run fields (B, N, k), ProblemRefs order
+  const T* ref_T[6];  // ref_T fields (B, k)
+  T* xs_try;          // (B, A, N+1, nx)
+  T* us_try;          // (B, A, N, nu)
+  T* cost_try;        // (B, A)
+  T* dv_try;          // (B, A) the acceptance's gap sum
+  int B, N, A;
+};
+
+// One problem's plan and references at one knot, as the kernel's block
+// stages them in shared memory: x_nom (21), u_nom (7), K (7 x 21), kff (7),
+// the next gap fs_{t+1} (21), the 57 references in RefView's order and the
+// gap products w_all_t (21).  At the terminal knot only x_nom, the terminal
+// references and w_all_N are read.
+enum PlanField {
+  kPlXnom = 0, kPlUnom = 21, kPlK = 28, kPlKff = 175, kPlFs = 182, kPlRef = 203,
+  kPlW = 260, kPlSize = 281
+};
+
+// Where value k of a plan row comes from, as one word made once a block (so
+// that the copies take no branch on k): the source array (SourceArray), its
+// row width w, the column, whether a problem has N + 1 rows there (states,
+// gaps, gap products) or N, whether the row is the next knot's (the gap
+// fs_{t+1}), and whether the terminal knot skips it.
+enum SourceArray { kSrcXs, kSrcUs, kSrcK, kSrcKff, kSrcFs, kSrcW, kSrcRef, kSrcRefT = kSrcRef + 6,
+                   kSrcArrays = kSrcRefT + 6 };
+
+FFMPC_HD unsigned plan_descriptor(int k) {
+  int id, w, col, state_rows = 0, next = 0, running = 0;
+  if (k < kPlUnom) {
+    id = kSrcXs, w = kNY, col = k, state_rows = 1;
+  } else if (k < kPlK) {
+    id = kSrcUs, w = kNW, col = k - kPlUnom, running = 1;
+  } else if (k < kPlKff) {
+    id = kSrcK, w = kNW * kNY, col = k - kPlK, running = 1;
+  } else if (k < kPlFs) {
+    id = kSrcKff, w = kNW, col = k - kPlKff, running = 1;
+  } else if (k < kPlRef) {
+    id = kSrcFs, w = kNY, col = k - kPlFs, state_rows = 1, next = 1, running = 1;
+  } else if (k < kPlW) {
+    // the ProblemRefs fields in RefView's order: widths 3, 3, 14, 7, 9, 21
+    const int c = k - kPlRef;
+    const int f = c < 3 ? 0 : c < 6 ? 1 : c < 20 ? 2 : c < 27 ? 3 : c < 36 ? 4 : 5;
+    const int start = f == 0 ? 0 : f == 1 ? 3 : f == 2 ? 6 : f == 3 ? 20 : f == 4 ? 27 : 36;
+    w = f == 0 || f == 1 ? 3 : f == 2 ? 14 : f == 3 ? 7 : f == 4 ? 9 : 21;
+    id = kSrcRef + f, col = c - start;
+  } else {
+    id = kSrcW, w = kNY, col = k - kPlW, state_rows = 1;
+  }
+  return (unsigned)id | (unsigned)w << 5 | (unsigned)col << 13 | (unsigned)state_rows << 21 |
+         (unsigned)next << 22 | (unsigned)running << 23;
+}
+
+// The source arrays of RolloutArgs, in SourceArray's order, into src.
+template <typename T>
+FFMPC_HD void plan_arrays(const RolloutArgs<T>& a, const T** src) {
+  src[kSrcXs] = a.xs;
+  src[kSrcUs] = a.us;
+  src[kSrcK] = a.K;
+  src[kSrcKff] = a.kff;
+  src[kSrcFs] = a.fs;
+  src[kSrcW] = a.w_all;
+  FFMPC_UNROLL
+  for (int f = 0; f < 6; ++f) {
+    src[kSrcRef + f] = a.ref[f];
+    src[kSrcRefT + f] = a.ref_T[f];
+  }
+}
+
+// Where the value of descriptor d lies for problem b at knot t (null where
+// the terminal knot skips it).
+template <typename T>
+FFMPC_HD const T* plan_source(const T* const* src, unsigned d, size_t b, int t, int N) {
+  const bool terminal = t == N;
+  const int id = d & 31, w = (d >> 5) & 255, col = (d >> 13) & 255;
+  if (terminal && (d >> 23 & 1)) return nullptr;
+  if (terminal && id >= kSrcRef) return src[id - kSrcRef + kSrcRefT] + b * w + col;
+  return src[id] + (b * (N + (d >> 21 & 1)) + t + (d >> 22 & 1)) * w + col;
+}
+
+// A group's scratch: what its lanes hand one another between the phases of
+// a knot, laid out in the slots of a derivative record (KnotRecord,
+// stride 1) and a tail.  Some regions serve two phases in turn: the frames'
+// prefix products (A, B) give way to the RNEA's terms and to the links'
+// inertias.
+enum GroupField {
+  kGV = kRecV, kGCq = kRecCq, kGSq = kRecSq,
+  kGM = kRecL,              // mass matrix, lower triangle packed by rows (28)
+  kGForce = kRecForce,      // contact force (0 in free space)
+  kGJp = kRecJp,            // frame Jacobian at the tool origin, 3 x 7
+  kGAxis = kRecAxis,        // joint axes, 7 x 3
+  kGP = kRecArm,            // joint origins, 7 x 3
+  kGEeR = kRecEeR,          // tool rotation
+  kGEeP = kRecRdes,         // tool origin (3)
+  kGVel6 = kRecRdes + 3,    // tool velocity, linear and angular (6)
+  kGScanA = kRecW,          // the frames' prefix products, 7 x (R 9, p 3), in turn
+  kGAlpha = kRecW,          //   then the RNEA's origin-acceleration terms, 7 x 3,
+  kGWrench = kRecW + 21,    //   and each link's centre, force and moment, 7 x 9
+  kGScanB = kRecGOri,       // the prefix products' second buffer, then
+  kGCom = kRecGOri,         //   the links' centres of mass in the world, 7 x 3,
+  kGIw = kRecGOri + 21,     //   and rotational inertias in the world, 7 x 3 x 3
+  kGBias = kRecBias, kGDrift = kRecDrift,
+  kGAcc = kRecAccel,        // joint acceleration (7)
+  kGDx = kRecDori,          // x - x_nom (21)
+  kGTau = kRecDori + 21,    // torque state (7)
+  kGOm = kRecDori + 28,     // a_j v_j: joint j's share of the angular velocities (21)
+  kGOmd = kRecDori + 49,    // omega_{j-1} x a_j v_j: its share of their rates (21)
+  kGRot = kRecSize,         // link world rotations, 7 x 3 x 3; then link j's
+                            //   angular velocity and link j-1's (or link j's
+                            //   angular acceleration) in its first 6 slots
+  kGSize = kRecSize + 63
+};
+static_assert(kGIw + 63 <= kRecBias && kGOmd + 21 <= kRecSize &&
+                  kGWrench + 63 <= kRecGOri && kGScanA + 84 <= kRecGOri,
+              "group scratch overlaps");
+
+// The registers of one lane: lane j < 7 carries joint j's state (q, v, tau)
+// and control, and its shares of the gap sum and of the cost over the
+// horizon; lane 7 only a share of the cost.
+template <typename T>
+struct LaneState {
+  T q, v, tau, u, dv, cost;
+};
+
+// Lane j's cost rows, each a record of four values made once a block from
+// the cost table: the factor c, the bounds lb, ub and the kind (0: adds
+// nothing; 1: c r^2 with c = scale w / 2; 2: barrier, c o^2 with c =
+// scale / 2), for running and for terminal knots.  The identity terms'
+// rows of joint j (posture, v_damp, q_soft_limits on q_j and v_j; tau_reg,
+// tau_soft_limits on tau_j, running knots only; y_reg on q_j, v_j, tau_j;
+// w_reg, w_soft on u_j), and row j of the terms on the tool's frame
+// (w_damp, ee_vxy, vz_damp on the tool velocity, j < 6; ee_pos, ee_xy,
+// plane_z on its position, j < 3; the contact force's unilateral and
+// fn_track rows, j = 6).  A term the knot does not have has scale 0, so
+// its rows are of kind 0.
+enum LaneRow {
+  kLrPostureQ, kLrPostureV, kLrVDampQ, kLrVDampV, kLrQSoftQ, kLrQSoftV, kLrTauReg,
+  kLrTauSoft, kLrYRegQ, kLrYRegV, kLrYRegTau, kLrWReg, kLrWSoft,
+  kLrWDamp, kLrEeVxy, kLrVzDamp, kLrEePos, kLrEeXy, kLrPlaneZ, kLrUnilateral, kLrFnTrack,
+  kLaneRows
+};
+constexpr int kRowRecord = 4;
+constexpr int kLaneRowValues = kLaneRows * kRowRecord;
+constexpr int kRowTableSize = 2 * kNQ * kLaneRowValues;  // [terminal][lane][row][record]
+
+template <typename T>
+FFMPC_HD void lane_row_table(const KnotConstants<T>& C, int j, bool terminal, T* rec) {
+  const int slot[kLaneRows] = {kPosture, kPosture, kVDamp, kVDamp, kQSoft, kQSoft, kTauReg,
+                               kTauSoft, kYReg, kYReg, kYReg, kWReg, kWSoft,
+                               kWDamp, kEeVxy, kVzDamp, kEePos, kEeXy, kPlaneZ, kUnilateral,
+                               kFnTrack};
+  const int row[kLaneRows] = {kRowPosture + j, kRowPosture + 7 + j, kRowVDamp + j,
+                              kRowVDamp + 7 + j, kRowQSoft + j, kRowQSoft + 7 + j,
+                              kRowTauReg + j, kRowTauSoft + j, kRowYReg + j, kRowYReg + 7 + j,
+                              kRowYReg + 14 + j, kRowWReg + j, kRowWSoft + j,
+                              kRowWDamp + j, kRowEeVxy + j, kRowVzDamp + j, kRowEePos + j,
+                              kRowEeXy + j, kRowPlaneZ + j, kRowUnilateral, kRowFnTrack};
+  // rows a lane holds: the tool velocity's 6, the position's 3, the force's 1 (lane 6)
+  const int lanes[kLaneRows] = {7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 6, 6, 6, 3, 3, 3, -6, -6};
+  for (int k = 0; k < kLaneRows; ++k) {
+    T* e = rec + k * kRowRecord;
+    const int sl = slot[k];
+    const bool tau = k == kLrTauReg || k == kLrTauSoft;
+    const bool held = lanes[k] > 0 ? j < lanes[k] : j == -lanes[k];
+    e[0] = e[1] = e[2] = e[3] = T(0);
+    if (!held || !slot_on(C, sl, terminal) || (terminal && tau)) continue;
+    const T half = T(0.5) * C.slot_scale[sl];
+    if (C.slot_barrier[sl] != T(0)) {
+      e[0] = half;
+      e[1] = C.row_lb[row[k]];
+      e[2] = C.row_ub[row[k]];
+      e[3] = T(2);
+    } else if (C.row_w[row[k]] != T(0)) {
+      e[0] = half * C.row_w[row[k]];
+      e[3] = T(1);
+    }
+  }
+}
+
+// One row's cost from its record (row_value's activation, the term's
+// scale folded in).
+template <typename T>
+FFMPC_HD T row_cost(const T* e, T r) {
+  if (e[3] == T(1)) return e[0] * (r * r);
+  if (e[3] == T(2)) {
+    T o = T(0);
+    if (e[2] < T(kBig)) {
+      const T d = r - e[2];
+      o = (d < T(0)) ? T(0) : d;
+    }
+    if (e[1] > T(-kBig)) {
+      const T d = r - e[1];
+      o = o + ((d > T(0)) ? T(0) : d);
+    }
+    return e[0] * (o * o);
+  }
+  return T(0);
+}
+
+// The phases of one knot, each run by the group's 8 lanes side by side and
+// ended by the group's barrier (__syncwarp in the kernel).  Lane j < 7 works
+// on joint j: its state, control and cost rows; link j's frame, as the
+// prefix product of the joints' transforms (three levels); link j's inertia,
+// velocity, acceleration and wrench in the world, whose sums over the links
+// before it (and the wrenches' over the links after it) are the RNEA's
+// recursions (bias forces, and the tool's acceleration at a = 0, the
+// contact drift); column j of the frame Jacobian and of the mass matrix.
+// Lane 7 runs the Cholesky factor with the contact solve, lane 6 beside it
+// the tool's orientation error.
+constexpr int kGroupPhases = 10;
+
+// Frames as 12 values, a rotation row-major and an origin.  out = a b, the
+// step of fk_chain's recursion: (Ra Rb, pa + Ra pb).
+template <typename T>
+FFMPC_HD void compose_frames(const T* a, const T* b, T (&out)[12]) {
+  for (int r = 0; r < 3; ++r) {
+    for (int c = 0; c < 3; ++c)
+      out[r * 3 + c] = a[r * 3 + 0] * b[0 * 3 + c] + a[r * 3 + 1] * b[1 * 3 + c] +
+                       a[r * 3 + 2] * b[2 * 3 + c];
+    out[9 + r] = a[9 + r] + (a[r * 3 + 0] * b[9] + a[r * 3 + 1] * b[10] + a[r * 3 + 2] * b[11]);
+  }
+}
+
+// Phase 0, lane j < 7: the state row into xs_try, dx = x - x_nom (for the
+// policy), the gap sum's terms w_t . (x - x_nom) (fddp.py's dv, as
+// -sum w (xs - xs_try)), cos and sin of q_j, joint j's transform from its
+// parent (j_rot rot_z(q_j), j_pos) for the frames' prefix products, and the
+// identity cost terms' rows of joint j.
+// The phases read before they write: a store to the scratch would keep the
+// compiler from moving a later load of the constants or the plan (all in
+// shared memory) above it.
+template <typename T>
+FFMPC_HD void group_state(const KnotConstants<T>& C, const T* plan, const T* rows, T* g,
+                          LaneState<T>& ls, int j, T* xs_row) {
+  const T* ref = plan + kPlRef;
+  const T dq = ls.q - plan[kPlXnom + j];
+  const T dv = ls.v - plan[kPlXnom + 7 + j];
+  const T dt = ls.tau - plan[kPlXnom + 14 + j];
+  ls.dv = ((ls.dv + plan[kPlW + j] * dq) + plan[kPlW + 7 + j] * dv) + plan[kPlW + 14 + j] * dt;
+  const T r[kLrWReg] = {ls.q - ref[6 + j], ls.v - ref[13 + j], ls.q, ls.v,
+                        ls.q - C.q_soft_ref[j], ls.v - C.q_soft_ref[7 + j],
+                        ls.tau - ref[20 + j], ls.tau, ls.q - ref[36 + j],
+                        ls.v - ref[43 + j], ls.tau - ref[50 + j]};
+  T cost = T(0);
+  for (int k = 0; k < kLrWReg; ++k) cost = cost + row_cost<T>(rows + k * kRowRecord, r[k]);
+  ls.cost = ls.cost + cost;
+  T cq, sq;
+  sincos_(ls.q, sq, cq);
+  T Rj[3][3];
+  joint_rot<T, T>(C, j, cq, sq, Rj);
+  const T jp[3] = {C.j_pos[j][0], C.j_pos[j][1], C.j_pos[j][2]};
+  for (int r = 0; r < 3; ++r) {
+    for (int c = 0; c < 3; ++c) g[kGScanA + j * 12 + r * 3 + c] = Rj[r][c];
+    g[kGScanA + j * 12 + 9 + r] = jp[r];
+  }
+  g[kGDx + j] = dq;
+  g[kGDx + 7 + j] = dv;
+  g[kGDx + 14 + j] = dt;
+  g[kGV + j] = ls.v;
+  g[kGTau + j] = ls.tau;
+  g[kGCq + j] = cq;
+  g[kGSq + j] = sq;
+  if (xs_row) {
+    xs_row[j] = ls.q;
+    xs_row[7 + j] = ls.v;
+    xs_row[14 + j] = ls.tau;
+  }
+}
+
+// Phases 1 and 2, lane j < 7: one level of the frames' prefix products
+// (Hillis-Steele): frame j <- frame j - d times frame j, from region src
+// into region dst.
+template <typename T>
+FFMPC_HD void group_scan(T* g, int j, int d, int src, int dst) {
+  T out[12];
+  if (j >= d) {
+    compose_frames<T>(g + src + (j - d) * 12, g + src + j * 12, out);
+  } else {
+    for (int k = 0; k < 12; ++k) out[k] = g[src + j * 12 + k];
+  }
+  for (int k = 0; k < 12; ++k) g[dst + j * 12 + k] = out[k];
+}
+
+// Phase 1, lane j < 7: u_j = clip(u_nom_j - alpha kff_j - K_j dx) into
+// us_try (0 at the terminal knot), and its control cost rows.
+template <typename T>
+FFMPC_HD void group_policy(const KnotConstants<T>& C, const T* plan, const T* rows, const T* g,
+                           LaneState<T>& ls, int j, bool terminal, T alpha, T* us_row) {
+  T u = T(0);
+  if (!terminal) {
+    // K_j dx in three partial sums of 7 (a shorter chain)
+    const T* Kj = plan + kPlK + j * kNY;
+    T k0 = T(0), k1 = T(0), k2 = T(0);
+    for (int i = 0; i < kNQ; ++i) {
+      k0 = k0 + Kj[i] * g[kGDx + i];
+      k1 = k1 + Kj[7 + i] * g[kGDx + 7 + i];
+      k2 = k2 + Kj[14 + i] * g[kGDx + 14 + i];
+    }
+    const T kdx = (k0 + k1) + k2;
+    u = clamp_nan<T>((plan[kPlUnom + j] - alpha * plan[kPlKff + j]) - kdx, C.u_lb[j], C.u_ub[j]);
+    if (us_row) us_row[j] = u;
+  }
+  ls.u = u;
+  ls.cost = ls.cost + (row_cost<T>(rows + kLrWReg * kRowRecord, u) +
+                       row_cost<T>(rows + kLrWSoft * kRowRecord, u));
+}
+
+// Phase 3, lane j < 7: the prefix products' last level, then the base frame:
+// link j's world rotation and origin (fk_chain's), its joint axis, and
+// a_j v_j, joint j's share of the links' angular velocities; lane 6 also
+// the tool frame.
+template <typename T>
+FFMPC_HD void group_frames(const KnotConstants<T>& C, T* g, const LaneState<T>& ls, int j) {
+  T S[12], W[12], base[12];
+  if (j >= 4) {
+    compose_frames<T>(g + kGScanA + (j - 4) * 12, g + kGScanA + j * 12, S);
+  } else {
+    for (int k = 0; k < 12; ++k) S[k] = g[kGScanA + j * 12 + k];
+  }
+  for (int r = 0; r < 3; ++r) {
+    for (int c = 0; c < 3; ++c) base[r * 3 + c] = C.base_rot[r][c];
+    base[9 + r] = C.base_pos[r];
+  }
+  compose_frames<T>(base, S, W);
+  for (int r = 0; r < 3; ++r) {
+    for (int c = 0; c < 3; ++c) g[kGRot + j * 9 + r * 3 + c] = W[r * 3 + c];
+    g[kGP + j * 3 + r] = W[9 + r];
+    g[kGAxis + j * 3 + r] = W[r * 3 + 2];
+    g[kGOm + j * 3 + r] = W[r * 3 + 2] * ls.v;
+  }
+  if (j == kNQ - 1)
+    for (int r = 0; r < 3; ++r) {
+      for (int c = 0; c < 3; ++c)
+        g[kGEeR + r * 3 + c] = W[r * 3 + 0] * C.ee_rot[0][c] + W[r * 3 + 1] * C.ee_rot[1][c] +
+                               W[r * 3 + 2] * C.ee_rot[2][c];
+      g[kGEeP + r] = W[9 + r] + (W[r * 3 + 0] * C.ee_pos[0] + W[r * 3 + 1] * C.ee_pos[1] +
+                                 W[r * 3 + 2] * C.ee_pos[2]);
+    }
+}
+
+// Phase 4, lane i < 7: link i's centre of mass and rotational inertia in the
+// world (fk_chain's WITH_MASS terms); column i of the frame Jacobian at the
+// tool origin, axis_i x (ee_p - p_i); link i's angular velocity (the sum of
+// a_j v_j over j <= i, rnea's w) and its share of the rates,
+// omega_{i-1} x a_i v_i (rnea's wd at a = 0).
+template <typename T>
+FFMPC_HD void group_link(const KnotConstants<T>& C, T* g, int i) {
+  T Rw[3][3], cw[3], Iw[3][3], IRt[3][3], ax[3], r[3], c[3], own[3], e[3], om[3], om_prev[3];
+  for (int a = 0; a < 3; ++a)
+    for (int b = 0; b < 3; ++b) Rw[a][b] = g[kGRot + i * 9 + a * 3 + b];
+  for (int a = 0; a < 3; ++a) {
+    cw[a] = g[kGP + i * 3 + a] + (Rw[a][0] * C.com[i][0] + Rw[a][1] * C.com[i][1] +
+                                  Rw[a][2] * C.com[i][2]);
+    ax[a] = g[kGAxis + i * 3 + a];
+    r[a] = g[kGEeP + a] - g[kGP + i * 3 + a];
+    om_prev[a] = T(0);
+    FFMPC_UNROLL
+    for (int k = 0; k < kNQ - 1; ++k)
+      if (k < i) om_prev[a] = om_prev[a] + g[kGOm + k * 3 + a];
+    own[a] = g[kGOm + i * 3 + a];
+    om[a] = om_prev[a] + own[a];
+  }
+  for (int b = 0; b < 3; ++b)
+    for (int d = 0; d < 3; ++d)
+      IRt[b][d] = C.inertia[i][b][0] * Rw[d][0] + C.inertia[i][b][1] * Rw[d][1] +
+                  C.inertia[i][b][2] * Rw[d][2];
+  for (int a = 0; a < 3; ++a)
+    for (int d = 0; d < 3; ++d)
+      Iw[a][d] = Rw[a][0] * IRt[0][d] + Rw[a][1] * IRt[1][d] + Rw[a][2] * IRt[2][d];
+  cross3<T>(ax, r, c);
+  cross3<T>(om_prev, own, e);
+  for (int a = 0; a < 3; ++a) {
+    g[kGRot + i * 9 + a] = om[a];
+    g[kGRot + i * 9 + 3 + a] = om_prev[a];
+    g[kGCom + i * 3 + a] = cw[a];
+    for (int d = 0; d < 3; ++d) g[kGIw + i * 9 + a * 3 + d] = Iw[a][d];
+    g[kGJp + a * kNQ + i] = c[a];
+    g[kGOmd + i * 3 + a] = e[a];
+  }
+}
+
+// Phase 5, lane k < 7: column k of the joint-space inertia (upper part,
+// M[j][k] for j <= k, written as the lower triangle's row k), from the
+// composite body of links k..6 about joint k's origin p_k (the composite
+// rigid-body form of fk_chain's sum over links i >= k of
+// m_i (a_j x r_ij) . (a_k x r_ik) + a_j . Iw_i a_k): with r_i = c_i - p_k,
+// its inertia Ic = sum Iw_i + m_i (|r_i|^2 I - r_i r_i^T) and first moment
+// h = sum m_i r_i, M[j][k] = a_j . (Ic a_k + (p_k - p_j) x (a_k x h)), and
+// the armature on the diagonal.
+template <typename T>
+FFMPC_HD void group_mass_column(const KnotConstants<T>& C, T* g, int k) {
+  T ak[3], pk[3], h[3] = {T(0), T(0), T(0)};
+  T I00 = T(0), I11 = T(0), I22 = T(0), I01 = T(0), I02 = T(0), I12 = T(0);
+  for (int a = 0; a < 3; ++a) {
+    ak[a] = g[kGAxis + k * 3 + a];
+    pk[a] = g[kGP + k * 3 + a];
+  }
+  FFMPC_ROLLED
+  for (int i = k; i < kNQ; ++i) {
+    const T* Iw = g + kGIw + i * 9;
+    const T m = C.mass[i];
+    T r[3];
+    for (int a = 0; a < 3; ++a) r[a] = g[kGCom + i * 3 + a] - pk[a];
+    const T rr = (r[0] * r[0] + r[1] * r[1]) + r[2] * r[2];
+    I00 = I00 + (Iw[0] + m * (rr - r[0] * r[0]));
+    I11 = I11 + (Iw[4] + m * (rr - r[1] * r[1]));
+    I22 = I22 + (Iw[8] + m * (rr - r[2] * r[2]));
+    I01 = I01 + (Iw[1] - m * (r[0] * r[1]));
+    I02 = I02 + (Iw[2] - m * (r[0] * r[2]));
+    I12 = I12 + (Iw[5] - m * (r[1] * r[2]));
+    for (int a = 0; a < 3; ++a) h[a] = h[a] + m * r[a];
+  }
+  const T L[3] = {(I00 * ak[0] + I01 * ak[1]) + I02 * ak[2],
+                  (I01 * ak[0] + I11 * ak[1]) + I12 * ak[2],
+                  (I02 * ak[0] + I12 * ak[1]) + I22 * ak[2]};
+  T P[3];
+  cross3<T>(ak, h, P);
+  FFMPC_UNROLL
+  for (int j = 0; j < kNQ; ++j) {
+    if (j <= k) {
+      T d[3], t[3];
+      for (int a = 0; a < 3; ++a) d[a] = pk[a] - g[kGP + j * 3 + a];
+      cross3<T>(d, P, t);
+      const T mjk = (g[kGAxis + j * 3 + 0] * (L[0] + t[0]) + g[kGAxis + j * 3 + 1] * (L[1] + t[1])) +
+                    g[kGAxis + j * 3 + 2] * (L[2] + t[2]);
+      g[kGM + packed_lower(k, j)] = (j == k) ? mjk + C.armature[k] : mjk;
+    }
+  }
+}
+
+// Phase 5, lane i < 7: link i's angular acceleration (the sum of the rates'
+// shares over j <= i) and its share of the origins' linear accelerations,
+// wd_{i-1} x d_i + w_{i-1} x (w_{i-1} x d_i) with d_i = p_i - p_{i-1} (rnea's
+// ac recursion, in the world).
+template <typename T>
+FFMPC_HD void group_rates(const KnotConstants<T>& C, T* g, int i) {
+  T d[3], t0[3], t1[3], t2[3], om_prev[3], omd[3], omd_prev[3];
+  for (int a = 0; a < 3; ++a) {
+    om_prev[a] = g[kGRot + i * 9 + 3 + a];
+    omd_prev[a] = T(0);
+    FFMPC_UNROLL
+    for (int k = 0; k < kNQ - 1; ++k)
+      if (k < i) omd_prev[a] = omd_prev[a] + g[kGOmd + k * 3 + a];
+    omd[a] = omd_prev[a] + g[kGOmd + i * 3 + a];
+    d[a] = g[kGP + i * 3 + a] - (i > 0 ? g[kGP + (i - 1) * 3 + a] : C.base_pos[a]);
+  }
+  cross3<T>(omd_prev, d, t0);
+  cross3<T>(om_prev, d, t1);
+  cross3<T>(om_prev, t1, t2);
+  for (int a = 0; a < 3; ++a) {
+    g[kGAlpha + i * 3 + a] = t0[a] + t2[a];
+    g[kGRot + i * 9 + 3 + a] = omd[a];
+  }
+}
+
+// Phase 6, lane i < 7: link i's origin acceleration (gravity's opposite plus
+// the shares over j <= i: rnea's gravity trick), its centre's, and the force
+// and moment about its centre that keep it on that path (rnea's F and
+// Nn + w x I w); lane 6 also the tool's acceleration at a = 0 with gravity
+// taken back out, whose z row is the contact drift.
+template <typename T>
+FFMPC_HD void group_wrench(const KnotConstants<T>& C, T* g, int i) {
+  T al[3], cw[3], r[3], t0[3], t1[3], t2[3], F[3], Iw[3], Nn[3], t3[3], om[3], omd[3];
+  for (int a = 0; a < 3; ++a) {
+    om[a] = g[kGRot + i * 9 + a];
+    omd[a] = g[kGRot + i * 9 + 3 + a];
+    al[a] = -C.gravity[a];
+    FFMPC_UNROLL
+    for (int k = 0; k < kNQ; ++k)
+      if (k <= i) al[a] = al[a] + g[kGAlpha + k * 3 + a];
+    cw[a] = g[kGCom + i * 3 + a];
+    r[a] = cw[a] - g[kGP + i * 3 + a];
+  }
+  cross3<T>(omd, r, t0);
+  cross3<T>(om, r, t1);
+  cross3<T>(om, t1, t2);
+  for (int a = 0; a < 3; ++a) F[a] = C.mass[i] * (al[a] + t0[a] + t2[a]);
+  for (int a = 0; a < 3; ++a) {
+    const T* I = g + kGIw + i * 9 + a * 3;
+    Iw[a] = om[0] * I[0] + om[1] * I[1] + om[2] * I[2];
+    Nn[a] = omd[0] * I[0] + omd[1] * I[1] + omd[2] * I[2];
+  }
+  cross3<T>(om, Iw, t3);
+  if (i == kNQ - 1) {
+    T t[3], u0[3], u1[3], u2[3];
+    for (int a = 0; a < 3; ++a) t[a] = g[kGEeP + a] - g[kGP + i * 3 + a];
+    cross3<T>(omd, t, u0);
+    cross3<T>(om, t, u1);
+    cross3<T>(om, u1, u2);
+    g[kGDrift] = (al[2] + u0[2] + u2[2]) + C.gravity[2];
+  }
+  for (int a = 0; a < 3; ++a) {
+    g[kGWrench + i * 9 + a] = cw[a];
+    g[kGWrench + i * 9 + 3 + a] = F[a];
+    g[kGWrench + i * 9 + 6 + a] = Nn[a] + t3[a];
+  }
+}
+
+// Phase 7, lane i < 7: the bias torque b_i = axis_i . n_i + damping_i v_i,
+// n_i the moment about joint i's origin of the wrenches of links i..6
+// (rnea's backward pass); lane a < 6 also component a of the tool velocity.
+template <typename T>
+FFMPC_HD void group_bias(const KnotConstants<T>& C, T* g, int i) {
+  T n[3] = {T(0), T(0), T(0)};
+  FFMPC_UNROLL
+  for (int k = 0; k < kNQ; ++k) {
+    if (k < i) continue;
+    const T* w = g + kGWrench + k * 9;
+    T r[3], f[3], m[3];
+    for (int a = 0; a < 3; ++a) {
+      r[a] = w[a] - g[kGP + i * 3 + a];
+      f[a] = w[3 + a];
+    }
+    cross3<T>(r, f, m);
+    for (int a = 0; a < 3; ++a) n[a] = n[a] + (w[6 + a] + m[a]);
+  }
+  g[kGBias + i] = (g[kGAxis + i * 3 + 0] * n[0] + g[kGAxis + i * 3 + 1] * n[1] +
+                   g[kGAxis + i * 3 + 2] * n[2]) +
+                  C.damping[i] * g[kGV + i];
+}
+
+// Cholesky factor in place (chol_factor's columns), with the reciprocals of
+// the pivots' square roots: L[i][j] = s_i / sqrt(s_j) taken as s_i * inv[j],
+// inv[j] = rsqrt(s_j), and inv[j] stands for 1 / L[j][j] in the solves (no
+// division, where chol_factor and two chol_solve pairs take 56, each a
+// dozen instructions in float32 with its IEEE rounding).  A negative pivot
+// gives NaN, as sqrt does.  L holds the lower triangle of A on entry.
+// Every loop is unrolled in full, so L stays in registers.
+template <typename T>
+FFMPC_HD void chol_inplace(T (&L)[kNQ][kNQ], T (&inv)[kNQ]) {
+  FFMPC_UNROLL
+  for (int j = 0; j < kNQ; ++j) {
+    FFMPC_UNROLL
+    for (int i = j; i < kNQ; ++i) {
+      T t = L[i][j];
+      FFMPC_UNROLL
+      for (int k = 0; k < j; ++k) t = t - L[i][k] * L[j][k];
+      L[i][j] = t;
+    }
+    inv[j] = rsqrt_(L[j][j]);
+    FFMPC_UNROLL
+    for (int i = j; i < kNQ; ++i) L[i][j] = L[i][j] * inv[j];
+  }
+}
+
+// L L^T x = b with the factor of chol_inplace.
+template <typename T>
+FFMPC_HD void chol_solve_inv(const T (&L)[kNQ][kNQ], const T (&inv)[kNQ], const T (&b)[kNQ],
+                             T (&x)[kNQ]) {
+  T y[kNQ];
+  FFMPC_UNROLL
+  for (int i = 0; i < kNQ; ++i) {
+    T s = b[i];
+    FFMPC_UNROLL
+    for (int k = 0; k < i; ++k) s = s - L[i][k] * y[k];
+    y[i] = s * inv[i];
+  }
+  FFMPC_UNROLL
+  for (int i = kNQ - 1; i >= 0; --i) {
+    T s = y[i];
+    FFMPC_UNROLL
+    for (int k = i + 1; k < kNQ; ++k) s = s - L[k][i] * x[k];
+    x[i] = s * inv[i];
+  }
+}
+
+// Phase 8, lane 7: the free dynamics and the damped 1-D contact solve
+// (primal_contact's), the acceleration and the force.
+template <typename T, bool SURFACE>
+FFMPC_HD void group_contact(const KnotConstants<T>& C, const T* plan, T* g) {
+  T L[kNQ][kNQ], inv[kNQ], rhs[kNQ], Minv_tau[kNQ];
+  FFMPC_UNROLL
+  for (int i = 0; i < kNQ; ++i) {
+    FFMPC_UNROLL
+    for (int j = 0; j <= i; ++j) L[i][j] = g[kGM + packed_lower(i, j)];
+    rhs[i] = g[kGTau + i] - g[kGBias + i];
+  }
+  chol_inplace<T>(L, inv);
+  chol_solve_inv<T>(L, inv, rhs, Minv_tau);
+  T force = T(0);
+  if constexpr (SURFACE) {
+    T Jc[kNQ], Minv_Jt[kNQ];
+    for (int j = 0; j < kNQ; ++j) Jc[j] = g[kGJp + 2 * kNQ + j];
+    chol_solve_inv<T>(L, inv, Jc, Minv_Jt);
+    T vel_c = T(0), S_ = T(0), JMt = T(0);
+    for (int j = 0; j < kNQ; ++j) {
+      vel_c = vel_c + Jc[j] * g[kGV + j];
+      S_ = S_ + Jc[j] * Minv_Jt[j];
+      JMt = JMt + Jc[j] * Minv_tau[j];
+    }
+    S_ = S_ + C.damping_c;
+    const T gap = g[kGEeP + 2] - (plan[kPlRef + 2] - C.z_press);
+    const T a_des = (-g[kGDrift] - C.kp * gap) - C.kd * vel_c;
+    const T inv_LS = rsqrt_(S_);  // the 1x1 Cholesky factor's reciprocal
+    force = ((a_des - JMt) * inv_LS) * inv_LS;
+    for (int i = 0; i < kNQ; ++i) g[kGAcc + i] = Minv_tau[i] + Minv_Jt[i] * force;
+  } else {
+    for (int i = 0; i < kNQ; ++i) g[kGAcc + i] = Minv_tau[i];
+  }
+  g[kGForce] = force;
+}
+
+// Component a < 6 of the tool velocity (Jp v, then the axes' sum).
+template <typename T>
+FFMPC_HD void group_velocity(T* g, int a) {
+  T s = T(0);
+  for (int j = 0; j < kNQ; ++j)
+    s = s + (a < 3 ? g[kGJp + a * kNQ + j] : g[kGAxis + j * 3 + (a - 3)]) * g[kGV + j];
+  g[kGVel6 + a] = s;
+}
+
+// Phase 9, lane j < 7 (running knots): semi-implicit Euler on (q_j, v_j),
+// the torque filter, and the gap-keeping update x + (alpha - 1)(1 -
+// feasible) fs_{t+1} (gap_scale holds the factor).
+template <typename T>
+FFMPC_HD void group_advance(const KnotConstants<T>& C, const T* plan, const T* g,
+                            LaneState<T>& ls, int j, T gap_scale) {
+  const T vn = ls.v + C.dt * g[kGAcc + j];
+  const T qn = ls.q + C.dt * vn;
+  const T tn = C.lpf_alpha * ls.tau + C.lpf_beta * ls.u;
+  ls.q = qn + gap_scale * plan[kPlFs + j];
+  ls.v = vn + gap_scale * plan[kPlFs + 7 + j];
+  ls.tau = tn + gap_scale * plan[kPlFs + 14 + j];
+}
+
+// Phase 8, lane 6 (beside lane 7's contact solve): the orientation error's
+// term, log3 of R_des^T ee_R.
+template <typename T>
+FFMPC_HD void group_orientation(const KnotConstants<T>& C, const T* plan, const T* g,
+                                bool terminal, T& cost) {
+  const T* ref = plan + kPlRef;
+  T Rrel[3][3], r[3];
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j)
+      Rrel[i][j] = ref[27 + 0 * 3 + i] * g[kGEeR + 0 * 3 + j] +
+                   ref[27 + 1 * 3 + i] * g[kGEeR + 1 * 3 + j] +
+                   ref[27 + 2 * 3 + i] * g[kGEeR + 2 * 3 + j];
+  log3<T>(Rrel, r);
+  add_term<T, 3>(C, kEeOri, kRowEeOri, terminal, r, cost);
+}
+
+// Phase 9, lane a < 7: the other terms on the tool's frame, a lane a row
+// (kLrWDamp..kLrFnTrack; rows a lane does not hold are of kind 0).
+template <typename T>
+FFMPC_HD void group_tool_rows(const KnotConstants<T>& C, const T* plan, const T* rows,
+                              const T* g, int a, T& cost) {
+  const T* ref = plan + kPlRef;
+  const T vel = a < 6 ? g[kGVel6 + a] : T(0);
+  const T pos = a < 3 ? g[kGEeP + a] - ref[a] : T(0);
+  const T r[kLaneRows - kLrWDamp] = {
+      vel, a < 2 ? vel - ref[3 + a] : vel, vel, pos, pos,
+      a < 2 ? pos : (a == 2 ? g[kGEeP + 2] - (ref[2] - C.z_press) : T(0)),
+      g[kGForce], g[kGForce] - C.fn_des};
+  T sum = T(0);
+  for (int k = kLrWDamp; k < kLaneRows; ++k)
+    sum = sum + row_cost<T>(rows + k * kRowRecord, r[k - kLrWDamp]);
+  cost = cost + sum;
+}
+
+// Phase p of one knot on one lane of a group.  xs_row / us_row: the
+// rollout's output rows at this knot (null where nothing is written).
+template <typename T, bool SURFACE>
+FFMPC_HD void group_phase(int p, const KnotConstants<T>& C, const T* plan, const T* table,
+                          T* g, LaneState<T>& ls, int lane, bool terminal, T alpha,
+                          T gap_scale, T* xs_row, T* us_row) {
+  const bool joint = lane < kNQ;
+  const T* rows = table + ((terminal ? kNQ : 0) + (joint ? lane : 0)) * kLaneRowValues;
+  switch (p) {
+    case 0:
+      if (joint) group_state<T>(C, plan, rows, g, ls, lane, xs_row);
+      break;
+    case 1:
+      if (joint) {
+        group_policy<T>(C, plan, rows, g, ls, lane, terminal, alpha, us_row);
+        group_scan<T>(g, lane, 1, kGScanA, kGScanB);
+      }
+      break;
+    case 2:
+      if (joint) group_scan<T>(g, lane, 2, kGScanB, kGScanA);
+      break;
+    case 3:
+      if (joint) group_frames<T>(C, g, ls, lane);
+      break;
+    case 4:
+      if (joint) group_link<T>(C, g, lane);
+      break;
+    case 5:
+      if (joint) {
+        group_mass_column<T>(C, g, lane);
+        group_rates<T>(C, g, lane);
+      }
+      break;
+    case 6:
+      if (joint) group_wrench<T>(C, g, lane);
+      break;
+    case 7:
+      if (joint) {
+        group_bias<T>(C, g, lane);
+        if (lane < 6) group_velocity<T>(g, lane);
+      }
+      break;
+    case 8:
+      if (!joint)
+        group_contact<T, SURFACE>(C, plan, g);
+      else if (lane == kNQ - 1)
+        group_orientation<T>(C, plan, g, terminal, ls.cost);
+      break;
+    default:
+      if (joint) {
+        group_tool_rows<T>(C, plan, rows, g, lane, ls.cost);
+        if (!terminal) group_advance<T>(C, plan, g, ls, lane, gap_scale);
+      }
+  }
+}
+
+// Cycles of block 0's thread 0 (lane 0 of its first group) per phase of the
+// rollout, summed over its knots: the six of group_phase (each up to the
+// group's barrier after it, so the lanes' slowest path) and the wait for the
+// next knot's plan rows (a build for measurement only,
+// -DFFMPC_ROLLOUT_PHASE_CLOCK; see tools/rollout_phase_split.py).
+#if defined(FFMPC_ROLLOUT_PHASE_CLOCK) && defined(__CUDACC__)
+constexpr int kRolloutPhases = kGroupPhases + 1;
+__device__ unsigned long long g_rollout_phase_cycles[kRolloutPhases];
+__device__ long long g_rollout_phase_t0;
+#if defined(__CUDA_ARCH__)
+#define FFMPC_ROLLOUT_PHASE_START()                                              \
+  do {                                                                           \
+    if (blockIdx.x == 0 && threadIdx.x == 0) ffmpc::g_rollout_phase_t0 = clock64(); \
+  } while (0)
+#define FFMPC_ROLLOUT_PHASE_MARK(k)                                                    \
+  do {                                                                                 \
+    if (blockIdx.x == 0 && threadIdx.x == 0) {                                         \
+      const long long now = clock64();                                                 \
+      ffmpc::g_rollout_phase_cycles[k] +=                                              \
+          (unsigned long long)(now - ffmpc::g_rollout_phase_t0);                       \
+      ffmpc::g_rollout_phase_t0 = now;                                                 \
+    }                                                                                  \
+  } while (0)
+#else
+#define FFMPC_ROLLOUT_PHASE_START()
+#define FFMPC_ROLLOUT_PHASE_MARK(k)
+#endif
+#else
+#define FFMPC_ROLLOUT_PHASE_START()
+#define FFMPC_ROLLOUT_PHASE_MARK(k)
+#endif
+
+// The step length 2^-ai, exact.
+template <typename T>
+FFMPC_HD T step_length(int ai) {
+  T alpha = T(1);
+  for (int k = 0; k < ai; ++k) alpha = alpha * T(0.5);
+  return alpha;
+}
+
+// Problem b at step length 2^-ai on one host thread: the group's 8 lanes
+// run each phase in turn, as the kernel's group does (its barrier between
+// phases); the lanes' shares are summed in lane order at the end.  What the
+// tests' g++ build of this header runs.
+template <typename T, bool SURFACE>
+inline void rollout_group_serial(const KnotConstants<T>& C, const RolloutArgs<T>& a, int b,
+                                 int ai) {
+  T plan[kPlSize], g[kGSize] = {}, table[kRowTableSize];
+  LaneState<T> ls[8] = {};
+  for (int k = 0; k < 2 * kNQ; ++k)
+    lane_row_table<T>(C, k % kNQ, k >= kNQ, table + k * kLaneRowValues);
+  for (int j = 0; j < kNQ; ++j) {
+    ls[j].q = a.x0[(size_t)b * kNY + j];
+    ls[j].v = a.x0[(size_t)b * kNY + 7 + j];
+    ls[j].tau = a.x0[(size_t)b * kNY + 14 + j];
+  }
+  const T alpha = step_length<T>(ai);
+  const T gap_scale = a.feasible[b] ? T(0) : alpha - T(1);
+  const size_t row = (size_t)b * a.A + ai;
+  const T* src[kSrcArrays];
+  plan_arrays<T>(a, src);
+  for (int t = 0; t <= a.N; ++t) {
+    const bool terminal = t == a.N;
+    for (int k = 0; k < kPlSize; ++k) {
+      const T* v = plan_source<T>(src, plan_descriptor(k), (size_t)b, t, a.N);
+      plan[k] = v ? *v : T(0);
+    }
+    T* xs_row = a.xs_try + (row * (a.N + 1) + t) * kNY;
+    T* us_row = terminal ? nullptr : a.us_try + (row * a.N + t) * kNW;
+    for (int p = 0; p < kGroupPhases; ++p)
+      for (int lane = 0; lane < 8; ++lane)
+        group_phase<T, SURFACE>(p, C, plan, table, g, ls[lane], lane, terminal, alpha,
+                                gap_scale, xs_row, us_row);
+  }
+  T cost = T(0), dv = T(0);
+  for (int lane = 0; lane < 8; ++lane) {
+    cost = cost + ls[lane].cost;
+    dv = dv + ls[lane].dv;
+  }
+  a.cost_try[row] = cost;
+  a.dv_try[row] = dv;
 }
 
 }  // namespace ffmpc

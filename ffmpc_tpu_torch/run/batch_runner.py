@@ -117,9 +117,10 @@ def make_episode_fn(model: PandaModel, W: OCPWeights, settings: FDDPSettings,
     kw = dict(dtype=dtype, device=dev)
     knots = {True: make_augmented_knot(model, W, surface=True),
              False: make_augmented_knot(model, W, surface=False)}
-    # each family's kernel constants, packed once: the kernels copy them to
-    # __constant__ memory at every launch, so switching families between
-    # ticks never reuses the other family's
+    # each family's kernel constants, packed once: the derivative kernel
+    # copies them to __constant__ memory at every launch and fddp.solve
+    # copies them to the card once a solve for the rollout kernel, so
+    # switching families between ticks never reuses the other family's
     uses_kernel = "kernel" in (settings.rollout_mode, settings.diff_mode)
     consts = {s: (pack_knot_consts(model, W, s, dtype) if uses_kernel else None)
               for s in (True, False)}

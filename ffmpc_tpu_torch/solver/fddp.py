@@ -128,19 +128,16 @@ class LineSearchStep(NamedTuple):
 
 
 def accept_step(S: "FDDPSettings", xs, us, cost_cur, xs_try, us_try, cost_try,
-                w_all, dg, dq) -> LineSearchStep:
+                dv, dg, dq) -> LineSearchStep:
     """Acceptance of every step length and selection of the largest that
     passes (Crocoddyl's first-acceptable descending sweep with fixed cost).
-    xs / us / cost_cur: the current iterate; *_try: ``rollout``'s outputs;
-    w_all, dg, dq: the backward sweep's gap products and expected-improvement
-    terms."""
+    xs / us / cost_cur: the current iterate; xs_try, us_try, cost_try, dv:
+    ``rollout``'s outputs (dv (B, A), the gap-aware expected improvement's
+    gap sum -sum w_all (xs - xs_try), formed by the rollout); dg, dq: the
+    backward sweep's expected-improvement terms."""
     B, A = cost_try.shape
     alphas = 0.5 ** torch.arange(A, dtype=xs.dtype, device=xs.device)
     dV = cost_cur[:, None] - cost_try                       # (B, A)
-    # gap-aware expected improvement; the gap weight and Vxx are folded
-    # into w_all = gapw * Vxx @ fs by the backward pass
-    dx_all = xs[:, None] - xs_try
-    dv = -torch.sum(w_all[:, None] * dx_all, dim=(2, 3))
     d1 = dg[:, None] + dv
     d2 = dq[:, None] - 2.0 * dv
     dVexp = alphas * (d1 + 0.5 * alphas * d2)
@@ -235,6 +232,9 @@ def solve(knot: KnotModel, refs_run: ProblemRefs, ref_T: ProblemRefs, x0,
     ref_T = ProblemRefs(*(a.contiguous() for a in ref_T))
     if "kernel" in (S.rollout_mode, S.diff_mode) and consts is None:
         consts = pack_knot_consts(knot.model, knot.W, knot.surface, dtype)
+    # the rollout kernel reads its constants from device memory: one copy a
+    # solve (the derivative kernel takes the host tensor)
+    rollout_consts = consts.to(device) if S.rollout_mode == "kernel" else None
     u_lb, u_ub = control_bounds(knot, dtype, device)
 
     # ---------------- derivative pass: running and terminal knots ---------
@@ -244,11 +244,11 @@ def solve(knot: KnotModel, refs_run: ProblemRefs, ref_T: ProblemRefs, x0,
         return diff_reference(knot, refs_run, ref_T, xs, us)
 
     # ---------------- forward pass: all step lengths in one rollout -------
-    def forward(xs, us, K, kff, fs, feasible):
+    def forward(xs, us, K, kff, fs, w_all, feasible):
         if S.rollout_mode == "kernel":
-            return rollout(knot, consts, x0, xs, us, K, kff, fs, feasible,
+            return rollout(knot, rollout_consts, x0, xs, us, K, kff, fs, w_all, feasible,
                            refs_run, ref_T, S.n_alphas)
-        return rollout_reference(knot, x0, xs, us, K, kff, fs, feasible,
+        return rollout_reference(knot, x0, xs, us, K, kff, fs, w_all, feasible,
                                  refs_run, ref_T, S.n_alphas)
 
     # ---------------- one FDDP iteration (all problems) -------------------
@@ -280,9 +280,8 @@ def solve(knot: KnotModel, refs_run: ProblemRefs, ref_T: ProblemRefs, x0,
         # Line search: ALL step lengths roll out in one batched pass, then
         # the largest acceptable alpha is selected per problem.  Equivalent
         # to Crocoddyl's first-acceptable descending sweep with fixed cost.
-        xs_try, us_try, cost_try = forward(c.xs, c.us, K, kff, fs, feasible)
-        ls = accept_step(S, c.xs, c.us, cost_cur, xs_try, us_try, cost_try,
-                         w_all, dg, dq)
+        xs_try, us_try, cost_try, dv = forward(c.xs, c.us, K, kff, fs, w_all, feasible)
+        ls = accept_step(S, c.xs, c.us, cost_cur, xs_try, us_try, cost_try, dv, dg, dq)
         accepted, alpha_f = ls.accepted, ls.alpha
         xs_new, us_new, cost_new = ls.xs, ls.us, ls.cost
         feasible_new = feasible | (accepted & (alpha_f >= 1.0 - 1e-12))

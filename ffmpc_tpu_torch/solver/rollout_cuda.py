@@ -6,12 +6,14 @@ roll out every problem of a batch for all step lengths alpha = 2^-a, a < A,
 at once: for each knot t the policy update
 ``u = clip(u_nom - alpha kff - K (x - x_nom))``, the knot's dynamics and cost,
 and the gap-keeping update ``x+ = f(x, u) + (alpha - 1)(1 - feasible) fs[t+1]``,
-then the terminal cost:
+then the terminal cost; and, for the acceptance, the gap sum of every step
+length, ``dv_try = -sum_{t,i} w_all[t,i] (xs[t,i] - xs_try[t,i])``
+(``ffmpc_tpu/solver/fddp.py``'s ``dv``):
 
     inputs   x0 (B,nx)  xs (B,N+1,nx)  us (B,N,nu)  K (B,N,nu,nx)  kff (B,N,nu)
-             fs (B,N+1,nx)  feasible (B,) bool
+             fs (B,N+1,nx)  w_all (B,N+1,nx)  feasible (B,) bool
              refs_run: ProblemRefs with leading dims (B,N); ref_T: leading (B,)
-    outputs  xs_try (B,A,N+1,nx)  us_try (B,A,N,nu)  cost_try (B,A)
+    outputs  xs_try (B,A,N+1,nx)  us_try (B,A,N,nu)  cost_try (B,A)  dv_try (B,A)
 
 ``rollout`` launches the hand-written kernel ``csrc/rollout.cu`` (device code
 in ``csrc/knot_chain.cuh``) for CUDA tensors, or raises, and uses
@@ -24,6 +26,7 @@ solver's alpha-batched forward pass, a Python loop over the knots of batched
 from __future__ import annotations
 
 import ctypes
+
 import numpy as np
 import torch
 
@@ -144,7 +147,7 @@ def pack_knot_consts(model, W, surface: bool, dtype) -> torch.Tensor:
 
 def _expected_shapes(B, N, nx, nu):
     return dict(x0=(B, nx), xs=(B, N + 1, nx), us=(B, N, nu), K=(B, N, nu, nx),
-                kff=(B, N, nu), fs=(B, N + 1, nx))
+                kff=(B, N, nu), fs=(B, N + 1, nx), w_all=(B, N + 1, nx))
 
 
 _REF_SHAPES = dict(p_ref=(3,), v_ref=(3,), x_reg_ref=(14,), tau_ref=(7,),
@@ -169,13 +172,13 @@ def check_refs(refs_run: ProblemRefs, ref_T: ProblemRefs, B: int, N: int, xs):
                                  f"{lead + _REF_SHAPES[f]}")
 
 
-def _check_args(x0, xs, us, K, kff, fs, feasible, refs_run, ref_T):
+def _check_args(x0, xs, us, K, kff, fs, w_all, feasible, refs_run, ref_T):
     if xs.dim() != 3 or us.dim() != 3:
         raise ValueError("xs must be (B,N+1,nx) and us (B,N,nu)")
     B, N, nu = us.shape
     nx = xs.shape[2]
     want = _expected_shapes(B, N, nx, nu)
-    named = dict(x0=x0, xs=xs, us=us, K=K, kff=kff, fs=fs)
+    named = dict(x0=x0, xs=xs, us=us, K=K, kff=kff, fs=fs, w_all=w_all)
     for name, a in named.items():
         if tuple(a.shape) != want[name]:
             raise ValueError(f"{name}: shape {tuple(a.shape)}, expected {want[name]}")
@@ -189,10 +192,10 @@ def _check_args(x0, xs, us, K, kff, fs, feasible, refs_run, ref_T):
     return B, N, nx, nu
 
 
-def rollout_reference(knot: KnotModel, x0, xs, us, K, kff, fs, feasible,
+def rollout_reference(knot: KnotModel, x0, xs, us, K, kff, fs, w_all, feasible,
                       refs_run: ProblemRefs, ref_T: ProblemRefs, n_alphas: int):
     """Plain PyTorch rollout (see the module docstring for shapes)."""
-    B, N, nx, nu = _check_args(x0, xs, us, K, kff, fs, feasible, refs_run, ref_T)
+    B, N, nx, nu = _check_args(x0, xs, us, K, kff, fs, w_all, feasible, refs_run, ref_T)
     A = n_alphas
     kw = dict(dtype=xs.dtype, device=xs.device)
     dtype = xs.dtype
@@ -225,15 +228,33 @@ def rollout_reference(knot: KnotModel, x0, xs, us, K, kff, fs, feasible,
     xs_try = torch.stack(xs_run + [x], dim=2)               # (B, A, N+1, nx)
     us_try = torch.stack(us_try, dim=2)                     # (B, A, N, nu)
     cost_try = torch.sum(torch.stack(costs, dim=-1), dim=-1) + cost_T
-    return xs_try, us_try, cost_try
+    return xs_try, us_try, cost_try, gap_sum(xs, xs_try, w_all)
 
 
+def gap_sum(xs, xs_try, w_all):
+    """The gap-aware expected improvement's gap sums (fddp.py's dv), (B, A):
+    ``-sum_{t,i} w_all (xs - xs_try)`` through the (B, A, N+1, nx)
+    difference, as the plain version forms them.  The gap weight and Vxx are
+    folded into w_all = gapw * Vxx @ fs by the backward sweep."""
+    dx_all = xs[:, None] - xs_try
+    return -torch.sum(w_all[:, None] * dx_all, dim=(2, 3))
+
+
+# the C function's arguments: consts (device), n_consts, x0, xs, us, K, kff,
+# fs, w_all, feasible, refs, refs_T, xs_try, us_try, cost_try, dv_try, B, N,
+# A, surface, stream
+ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 14
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _consts_len_checked = set()
+
+
+def _suffix(dtype):
+    return {torch.float32: "f32", torch.float64: "f64"}[dtype]
 
 
 def _kernel_fn(dtype):
     lib = load_library("rollout")
-    suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+    suffix = _suffix(dtype)
     if dtype not in _consts_len_checked:
         n = getattr(lib, f"ffmpc_rollout_consts_len_{suffix}")
         n.restype = ctypes.c_int
@@ -241,24 +262,47 @@ def _kernel_fn(dtype):
             raise RuntimeError(f"rollout kernel: KnotConstants holds {n()} values, "
                                f"the packer writes {N_CONSTS}")
         _consts_len_checked.add(dtype)
-    return bind(lib, f"ffmpc_rollout_{suffix}",
-                ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 12
-                 + [ctypes.c_int] * 4 + [ctypes.c_void_p]))
+    return bind(lib, f"ffmpc_rollout_{suffix}", ARGTYPES)
 
 
-def rollout(knot: KnotModel, consts: torch.Tensor, x0, xs, us, K, kff, fs,
-            feasible, refs_run: ProblemRefs, ref_T: ProblemRefs, n_alphas: int):
-    """Line-search rollout on the hand-written CUDA kernel (see the module
-    docstring for shapes).  CUDA tensors go to the kernel or raise; only CPU
-    tensors go to ``rollout_reference``.  ``consts`` is
-    ``pack_knot_consts(knot.model, knot.W, knot.surface, dtype)``.  Launches
-    on the current stream and does not synchronize.  ``rollout.launches``
-    counts the kernel launches (a plain integer, incremented here and
-    nowhere else)."""
-    B, N, nx, nu = _check_args(x0, xs, us, K, kff, fs, feasible, refs_run, ref_T)
-    if xs.device.type == "cpu":
-        return rollout_reference(knot, x0, xs, us, K, kff, fs, feasible,
-                                 refs_run, ref_T, n_alphas)
+def resident_blocks_per_sm(dtype=torch.float32, n_alphas: int = 10) -> int:
+    """Blocks of the kernel (contact instantiation) that one SM holds at
+    once at ``n_alphas`` step lengths, as launched
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` with its shared
+    memory); needs a card."""
+    fn = bind(load_library("rollout"), f"ffmpc_rollout_occupancy_{_suffix(dtype)}",
+              [ctypes.POINTER(ctypes.c_int), ctypes.c_int])
+    n = ctypes.c_int(0)
+    err = fn(ctypes.byref(n), int(n_alphas))
+    if err != 0:
+        raise RuntimeError(f"rollout occupancy query failed: cudaError {err}")
+    return n.value
+
+
+def max_alphas() -> int:
+    """The most step lengths the kernel takes (csrc/rollout.cu: a block's
+    lane groups, one a step length); needs the built library."""
+    return bind(load_library("rollout"), "ffmpc_rollout_max_alphas", [])()
+
+
+def problems_per_block(n_alphas: int) -> int:
+    """The problems a block of the kernel holds at ``n_alphas`` step lengths,
+    as csrc/rollout.cu launches it; needs the built library."""
+    n = bind(load_library("rollout"), "ffmpc_rollout_problems_per_block",
+             [ctypes.c_int])(int(n_alphas))
+    if n < 1:
+        raise ValueError(f"rollout: {n_alphas} step lengths, the kernel takes "
+                         f"1..{max_alphas()}")
+    return n
+
+
+def kernel_args(knot: KnotModel, consts: torch.Tensor, x0, xs, us, K, kff, fs, w_all,
+                feasible, refs_run: ProblemRefs, ref_T: ProblemRefs, n_alphas: int):
+    """Checks CUDA inputs as the kernel takes them and allocates the outputs.
+    Returns (outputs, the C function's arguments before the stream): what
+    ``rollout`` launches, and what a measurement build of the kernel
+    (``tools/rollout_phase_split.py``) is called with."""
+    B, N, nx, nu = _check_args(x0, xs, us, K, kff, fs, w_all, feasible, refs_run, ref_T)
     if xs.device.type != "cuda":
         raise ValueError(f"rollout: unsupported device {xs.device}")
     if (nx, nu) != (KERNEL_NX, KERNEL_NU):
@@ -267,14 +311,14 @@ def rollout(knot: KnotModel, consts: torch.Tensor, x0, xs, us, K, kff, fs,
     dtype = xs.dtype
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"rollout: unsupported dtype {dtype}")
-    if B < 1 or N < 1 or n_alphas < 1:
-        raise ValueError(f"rollout: empty batch, horizon or step lengths "
-                         f"(B={B}, N={N}, A={n_alphas})")
-    if consts.dtype != dtype or consts.device.type != "cpu" \
+    if B < 1 or N < 1 or not 1 <= n_alphas <= max_alphas():
+        raise ValueError(f"rollout: empty batch or horizon, or step lengths outside "
+                         f"1..{max_alphas()} (B={B}, N={N}, A={n_alphas})")
+    if consts.dtype != dtype or consts.device != xs.device \
             or consts.numel() != N_CONSTS or not consts.is_contiguous():
         raise ValueError("rollout: consts must be pack_knot_consts(...) in the "
-                         f"rollout's dtype {dtype}")
-    tensors = dict(x0=x0, xs=xs, us=us, K=K, kff=kff, fs=fs, feasible=feasible)
+                         f"rollout's dtype {dtype}, copied to {xs.device}")
+    tensors = dict(x0=x0, xs=xs, us=us, K=K, kff=kff, fs=fs, w_all=w_all, feasible=feasible)
     for f in ProblemRefs._fields:
         tensors[f"refs_run.{f}"] = getattr(refs_run, f)
         tensors[f"ref_T.{f}"] = getattr(ref_T, f)
@@ -283,20 +327,38 @@ def rollout(knot: KnotModel, consts: torch.Tensor, x0, xs, us, K, kff, fs,
             raise ValueError(f"rollout: {name} must be contiguous")
 
     A = int(n_alphas)
-    xs_try = torch.empty(B, A, N + 1, nx, dtype=dtype, device=xs.device)
-    us_try = torch.empty(B, A, N, nu, dtype=dtype, device=xs.device)
-    cost_try = torch.empty(B, A, dtype=dtype, device=xs.device)
+    outs = (torch.empty(B, A, N + 1, nx, dtype=dtype, device=xs.device),
+            torch.empty(B, A, N, nu, dtype=dtype, device=xs.device),
+            torch.empty(B, A, dtype=dtype, device=xs.device),
+            torch.empty(B, A, dtype=dtype, device=xs.device))
     ptrs = ctypes.c_void_p * 6
     refs_p = ptrs(*(getattr(refs_run, f).data_ptr() for f in ProblemRefs._fields))
     refT_p = ptrs(*(getattr(ref_T, f).data_ptr() for f in ProblemRefs._fields))
+    return outs, (consts.data_ptr(), N_CONSTS,
+                  *(a.data_ptr() for a in (x0, xs, us, K, kff, fs, w_all, feasible)),
+                  refs_p, refT_p, *(o.data_ptr() for o in outs), B, N, A,
+                  int(bool(knot.surface)))
 
-    launch("rollout", _kernel_fn(dtype), xs.device,
-           consts.data_ptr(), N_CONSTS,
-           *(a.data_ptr() for a in (x0, xs, us, K, kff, fs, feasible)),
-           refs_p, refT_p, xs_try.data_ptr(), us_try.data_ptr(),
-           cost_try.data_ptr(), B, N, A, int(bool(knot.surface)))
+
+def rollout(knot: KnotModel, consts: torch.Tensor, x0, xs, us, K, kff, fs, w_all,
+            feasible, refs_run: ProblemRefs, ref_T: ProblemRefs, n_alphas: int):
+    """Line-search rollout on the hand-written CUDA kernel (see the module
+    docstring for shapes).  CUDA tensors go to the kernel or raise; only CPU
+    tensors go to ``rollout_reference``.  ``consts`` is
+    ``pack_knot_consts(knot.model, knot.W, knot.surface, dtype)`` on the
+    device of ``xs`` (the caller copies it there once, ``fddp.solve`` once a
+    solve; a launch copies nothing from the host).  Launches on the current
+    stream and does not synchronize.  ``rollout.launches``
+    counts the kernel launches (a plain integer, incremented here and
+    nowhere else)."""
+    if xs.device.type == "cpu":
+        return rollout_reference(knot, x0, xs, us, K, kff, fs, w_all, feasible,
+                                 refs_run, ref_T, n_alphas)
+    outs, args = kernel_args(knot, consts, x0, xs, us, K, kff, fs, w_all, feasible,
+                             refs_run, ref_T, n_alphas)
+    launch("rollout", _kernel_fn(xs.dtype), xs.device, *args)
     rollout.launches += 1
-    return xs_try, us_try, cost_try
+    return outs
 
 
 rollout.launches = 0

@@ -1,46 +1,39 @@
 """Where one knot of the backward-sweep kernel spends its cycles.
 
-Builds a backward-sweep source (default ``csrc/backward_sweep.cu``) with
-``-DFFMPC_BACKWARD_PHASE_CLOCK``: ``clock64()`` stamps on block 0's thread 0
-sum the cycles of each phase of a knot over the sweep (``PHASES``; thread 0
-runs the box QP, so a phase's cycles include its barrier waits).  The build
-goes to ``ffmpc_tpu_torch/_build/`` beside the package's own libraries and
-exports the same C interface plus ``ffmpc_backward_phase_cycles``.  Runs the
-kernel at N=40 on seeded inputs (bounds active and inactive, the recipe of
-the package's CPU tests) at each batch size, and prints per-knot cycles by
-phase and the launch's time (CUDA events; the stamps add a few cycles a
-phase).  With ``--no-clock`` the source is built as the package builds it
-and only the launch is timed: that times another revision's kernel beside
-this one on the same card (e.g. a source taken with ``git archive``).
-Needs a card and nvcc.
+Builds a backward-sweep source (``backward_sweep.cu`` of a ``csrc/``
+directory, this package's by default) with ``-DFFMPC_BACKWARD_PHASE_CLOCK``:
+``clock64()`` stamps on block 0's thread 0 sum the cycles of each phase of a
+knot over the sweep (``PHASES``; thread 0 runs the box QP, so a phase's
+cycles include its barrier waits), handed back by
+``ffmpc_backward_phase_cycles``.  Runs the kernel at N=40 (``--horizon``)
+on seeded inputs (bounds active and inactive, the recipe of the package's
+CPU tests) at each batch size, and prints per-knot cycles by phase (the
+terminal phase once a sweep) and the launch's time (CUDA events, median of
+7 rounds of 5 launches; the stamps add a few cycles a phase).  With
+``--no-clock`` the sources are built as the package builds them and only
+the launches are timed, several ``--source`` directories (another
+revision's ``csrc/``, taken with ``git archive``) in turns in this one
+process.  ``--sass`` also counts each kernel's SASS instructions and
+LDL/STL.  Needs a card and nvcc.
 
 Usage: python -m ffmpc_tpu_torch.tools.backward_phase_split
-           [--source FILE] [--no-clock] [--batch 1 256] [--horizon 40]
-           [--json OUT]
+           [--source CSRC_DIR ...] [--no-clock] [--sass] [--batch 1 256]
+           [--horizon 40] [--json OUT]
 """
 
 from __future__ import annotations
 
-import argparse
 import ctypes
-import json
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from ..solver import _cuda_build
+from ..solver import _cuda_build, backward_cuda
+from . import _phase_split
 
 PHASES = ("input_wait", "w_products", "quu_qu", "box_qp_and_gain_factor", "gains",
           "value_update", "w_and_accumulators", "terminal")
 NX, NU = 21, 7
-
-
-def build(source: Path, clock: bool = True) -> Path:
-    """The library built from ``source``, with the phase clock or without
-    (cached by content and flags)."""
-    return _cuda_build.build_variant(
-        source, ("-DFFMPC_BACKWARD_PHASE_CLOCK",) if clock else (), "backward_phase")
 
 
 def seeded_args(B, N, tight, seed, device="cuda"):
@@ -66,85 +59,47 @@ def seeded_args(B, N, tight, seed, device="cuda"):
             for a in (*arrays, xreg, xreg)]
 
 
-def split(lib, B, N, tight, reps=5):
-    """Per-knot cycles by phase of block 0 (mean over ``reps`` launches; a
-    build with the phase clock only) and the mean launch time in ms."""
-    fn = lib.ffmpc_backward_sweep_f32
-    fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 3 + [ctypes.c_double,
-                                                                ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    clock = hasattr(lib, "ffmpc_backward_phase_cycles")
-    if clock:
-        read = lib.ffmpc_backward_phase_cycles
-        read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
-        read.restype = ctypes.c_int
-    else:
-        def read(_):
-            return 0
-    args = seeded_args(B, N, tight, seed=1 if tight else 0)
+def launcher(lib, case, args):
+    """The float32 kernel of ``lib`` at (batch, bounds active) ``case`` on
+    the seeded inputs."""
+    B, tight = case
+    N = args.horizon
+    fn = _cuda_build.bind(lib, "ffmpc_backward_sweep_f32", backward_cuda._ARGTYPES)
+    inputs = seeded_args(B, N, tight, seed=1 if tight else 0)
     f = torch.float32
     outs = [torch.empty(B, N, NU, NX, dtype=f, device="cuda"),
             torch.empty(B, N, NU, dtype=f, device="cuda"),
             *(torch.empty(B, dtype=f, device="cuda") for _ in range(3)),
             torch.empty(B, dtype=torch.bool, device="cuda"),
             torch.empty(B, N + 1, NX, dtype=f, device="cuda")]
-    stream = torch.cuda.current_stream().cuda_stream
-    cycles = (ctypes.c_ulonglong * 8)()
+    ptrs = [a.data_ptr() for a in (*inputs, *outs)]
 
     def run():
-        err = fn(*(a.data_ptr() for a in args), *(o.data_ptr() for o in outs), B, N, 8,
-                 1e-12, stream)
-        if err != 0:
-            raise RuntimeError(f"launch failed: cudaError {err}")
+        _cuda_build.launch("backward_sweep", fn, inputs[0].device, *ptrs, B, N, 8, 1e-12)
 
-    run()
-    torch.cuda.synchronize()
-    read(cycles)  # drop the warm-up's sums
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        run()
-    e1.record()
-    torch.cuda.synchronize()
-    if read(cycles) != 0:
-        raise RuntimeError("reading the phase cycles failed")
-    res = {"B": B, "N": N, "bounds": "active" if tight else "inactive",
-           "launch_ms": e0.elapsed_time(e1) / reps, "bad": int(outs[5].sum())}
-    if clock:
-        per_knot = {p: cycles[i] / reps / (1 if p == "terminal" else N)
-                    for i, p in enumerate(PHASES)}
-        knot = sum(v for p, v in per_knot.items() if p != "terminal")
-        res.update(cycles_per_knot=per_knot, knot_cycles=knot,
-                   share={p: per_knot[p] / knot for p in PHASES if p != "terminal"})
-    return res
+    return _phase_split.Launch(
+        run, N, {"B": B, "N": N, "bounds": "active" if tight else "inactive"},
+        lambda: {"bad": int(outs[5].sum())}, once=("terminal",))
+
+
+def occupancy(lib):
+    occ = _cuda_build.bind(lib, "ffmpc_backward_sweep_occupancy_f32",
+                           [ctypes.POINTER(ctypes.c_int)])
+    n = ctypes.c_int(0)
+    if occ(ctypes.byref(n)) != 0:
+        raise RuntimeError("occupancy query failed")
+    return n.value
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__,
-                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--source", type=Path, default=_cuda_build.CSRC_DIR / "backward_sweep.cu")
-    ap.add_argument("--no-clock", dest="clock", action="store_false",
-                    help="build without the phase clock; time the launches only")
-    ap.add_argument("--batch", type=int, nargs="+", default=[1, 256])
+    ap = _phase_split.parser(__doc__, default_batch=(1, 256))
     ap.add_argument("--horizon", type=int, default=40)
-    ap.add_argument("--json", type=Path, default=None)
-    a = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("backward_phase_split: needs a CUDA device")
-    lib = ctypes.CDLL(str(build(a.source.resolve(), a.clock)))
-    res = {"source": str(a.source), "device": torch.cuda.get_device_name(0),
-           "runs": [split(lib, B, a.horizon, tight) for B in a.batch for tight in (False, True)]}
-    for r in res["runs"]:
-        split_ = ""
-        if "knot_cycles" in r:
-            split_ = (f"; {r['knot_cycles']:.0f} cycles a knot: "
-                      + ", ".join(f"{p} {r['cycles_per_knot'][p]:.0f}" for p in PHASES))
-        print(f"B={r['B']} bounds {r['bounds']}: {r['launch_ms']:.4f} ms a launch{split_}",
-              flush=True)
-    print(json.dumps(res))
-    if a.json:
-        a.json.write_text(json.dumps(res, indent=1))
-    return 0
+    args = ap.parse_args(argv)
+    return _phase_split.main(args, name="backward_phase_split", source="backward_sweep.cu",
+                             define="-DFFMPC_BACKWARD_PHASE_CLOCK",
+                             cycles="ffmpc_backward_phase_cycles", launcher=launcher,
+                             phases=PHASES, occupancy=occupancy,
+                             cases=[(B, tight) for B in args.batch for tight in (False, True)])
 
 
 if __name__ == "__main__":

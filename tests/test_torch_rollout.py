@@ -1,22 +1,36 @@
 """Line-search rollout of the PyTorch port (the module that holds the CUDA
 rollout kernel) == the JAX package's fused-rollout reference, the
 alpha-vmapped scan of ``make_fused_rollout`` called unbatched, float64 on
-the CPU; the kernel's constant packer == the JAX knot's cost spec; and the
+the CPU, with the acceptance's gap sum ``dv_try`` formed from the JAX
+outputs as ``ffmpc_tpu/solver/fddp.py`` forms it; the kernel's device code
+(``csrc/knot_chain.cuh``: the lane group's phases, through
+``rollout_group_serial``, compiled for the host with g++) == the plain
+version; the kernel's constant packer == the JAX knot's cost spec; and the
 port's solve == the framework-free golden fixture.  (The slice as a whole
 against the JAX batched solve is ``test_torch_solve.py``, which runs the
 port's default settings, both kernel modes.)
 
 On the CPU ``rollout`` runs its plain version, ``rollout_reference``; the
-CUDA kernel itself runs only on a card (the ``cuda``-marked test, skipped
+CUDA kernel itself runs only on a card (the ``cuda``-marked tests, skipped
 here).
 
 Tolerances, each against the field's largest magnitude:
 - against the JAX vector knot, rtol 1e-11: the same formulas in float64,
-  summed in another order, through 4 knots of stiff contact dynamics;
+  summed in another order, through 4 knots of stiff contact dynamics; the
+  gap sum, rtol 1e-12: one sum of products over the same trajectory;
 - against the JAX scalar knot (the TPU kernel's own body), rtol 1e-8 /
   atol 1e-10: the scalar chain differs from the vector one by its Newton
   arccos and its op order, about 1e-9 per knot
-  (``tests/test_scalar_knot.py``).
+  (``tests/test_scalar_knot.py``);
+- the host build of the device code against the plain version, rtol 1e-11:
+  the same knot evaluated another way on 8 lanes (the link frames as prefix
+  products, the bias RNEA and the contact drift as world-frame sums, the
+  mass matrix from composite bodies, the cost rows and the gap sum split
+  over the lanes, the pivots' reciprocal square roots in the Cholesky
+  solves), contracted into FMAs where the compiler chooses;
+- the kernel on the card against the plain version: float64 rtol 5e-9 /
+  atol 1e-10 with equal non-finite sets, float32 at ``chip_smoke.py``'s
+  gates.
 
 The inputs are built with the port alone, and the JAX package is imported
 only inside the comparisons with it (the ``jx`` fixture), which skip where
@@ -25,7 +39,10 @@ JAX is not installed: a card's machine has none, and there the
 ``python -m pytest --noconftest tests/test_torch_rollout.py -m cuda``.
 """
 
+import ctypes
 import dataclasses
+import shutil
+import subprocess
 from types import SimpleNamespace
 
 import numpy as np
@@ -81,11 +98,12 @@ def setup():
     kff = rng.normal(size=(BN, NH, 7))
     fs = 0.1 * rng.normal(size=(BN, NH + 1, nx))
     feas = np.array([False, True])
+    w_all = 0.3 * rng.normal(size=(BN, NH + 1, nx))
     # the port's refs carry the batch: the same problem refs for every problem
     t_rr = ProblemRefs(*(a.expand(BN, *a.shape[1:]).contiguous() for a in rr1))
     t_rT = ProblemRefs(*(a.expand(BN, *a.shape[1:]).contiguous() for a in rT1))
     return dict(mt=mt, refs_run=rr1, ref_T=rT1, t_rr=t_rr, t_rT=t_rT,
-                arrays=(x0, xs, us, K, kff, fs, feas))
+                arrays=(x0, xs, us, K, kff, fs, feas), w_all=w_all)
 
 
 @pytest.fixture(scope="module")
@@ -129,18 +147,28 @@ def jax_rollout(jx, surface, calc_mode):
     return run
 
 
+def port_args(setup, arrays):
+    """``rollout``'s arrays from the setup's (x0, xs, us, K, kff, fs,
+    feasible), with the setup's gap products."""
+    x0, xs, us, K, kff, fs, feas = arrays
+    return ([T(a) for a in (x0, xs, us, K, kff, fs, setup["w_all"])]
+            + [torch.as_tensor(feas)])
+
+
 def port_rollout(setup, surface, arrays, fn=rc.rollout_reference):
     knot = taction.make_augmented_knot(setup["mt"], TWeights(**W_KW), surface)
-    x0, xs, us, K, kff, fs, feas = arrays
-    args = [T(a) for a in (x0, xs, us, K, kff, fs)] + [torch.as_tensor(feas)]
+    args = port_args(setup, arrays)
     if fn is rc.rollout:
         consts = rc.pack_knot_consts(knot.model, knot.W, knot.surface, torch.float64)
         return fn(knot, consts, *args, setup["t_rr"], setup["t_rT"], NA)
     return fn(knot, *args, setup["t_rr"], setup["t_rT"], NA)
 
 
+OUT_FIELDS = ("xs_try", "us_try", "cost_try", "dv_try")
+
+
 def assert_close(got, want, rtol, atol, what):
-    for name, g, w in zip(("xs_try", "us_try", "cost_try"), got, want):
+    for name, g, w in zip(OUT_FIELDS, got, want):
         g, w = np.asarray(g), np.asarray(w)
         assert g.shape == w.shape, (what, name, g.shape, w.shape)
         fin = np.isfinite(w)
@@ -159,7 +187,21 @@ def test_reference_matches_jax_fused_rollout_reference(setup, jx, surface, calc_
     want = jax_rollout(jx, surface, calc_mode)(setup["arrays"])
     got = [o.numpy() for o in port_rollout(setup, surface, setup["arrays"])]
     assert got[0].shape == (BN, NA, NH + 1, 21) and got[2].shape == (BN, NA)
-    assert_close(got, want, rtol, atol, f"{surface}/{calc_mode}")
+    assert got[3].shape == (BN, NA)
+    assert_close(got[:3], want, rtol, atol, f"{surface}/{calc_mode}")
+
+
+@pytest.mark.parametrize("surface", [True, False], ids=["contact", "free"])
+def test_reference_gap_sum_matches_jax_outputs(setup, jx, surface):
+    """``dv_try`` == -sum w_all (xs - xs_try) (``ffmpc_tpu/solver/fddp.py``'s
+    dv), formed with numpy from the JAX fused-rollout reference's states."""
+    want_xs = jax_rollout(jx, surface, "vector")(setup["arrays"])[0]
+    xs = setup["arrays"][1]
+    want = -np.sum(setup["w_all"][:, None] * (xs[:, None] - want_xs), axis=(2, 3))
+    got = port_rollout(setup, surface, setup["arrays"])[3].numpy()
+    scale = float(np.abs(want).max())
+    assert scale > 0.0
+    assert float(np.abs(got - want).max()) <= 1e-12 * scale
 
 
 def test_non_finite_rollouts_match_jax_and_nan_controls_survive_the_clip(setup, jx):
@@ -179,7 +221,8 @@ def test_non_finite_rollouts_match_jax_and_nan_controls_survive_the_clip(setup, 
     assert not fin[1].any()
     assert np.isnan(got[1][1, :, 1:]).any(-1).all()     # NaN controls, not clipped
     assert not np.isnan(got[1][1, :, 0]).any()
-    assert_close(got, want, 1e-11, 0.0, "non-finite case")
+    assert np.array_equal(np.isfinite(got[3]), fin)      # the gap sums with them
+    assert_close(got[:3], want, 1e-11, 0.0, "non-finite case")
 
 
 def _jax_table(mj, W, surface):
@@ -283,8 +326,7 @@ def test_wrapper_uses_plain_version_on_cpu_and_counts_no_launch(setup):
 def test_wrapper_rejects_wrong_shapes_and_types(setup):
     knot = taction.make_augmented_knot(setup["mt"], TWeights(**W_KW), True)
     consts = rc.pack_knot_consts(knot.model, knot.W, knot.surface, torch.float64)
-    x0, xs, us, K, kff, fs, feas = setup["arrays"]
-    args = [T(a) for a in (x0, xs, us, K, kff, fs)] + [torch.as_tensor(feas)]
+    args = port_args(setup, setup["arrays"])
 
     def call(a):
         return rc.rollout(knot, consts, *a, setup["t_rr"], setup["t_rT"], NA)
@@ -298,7 +340,11 @@ def test_wrapper_rejects_wrong_shapes_and_types(setup):
     with pytest.raises(ValueError, match="kff"):
         call(bad)
     bad = list(args)
-    bad[6] = bad[6].to(torch.float64)            # feasible must be bool
+    bad[6] = bad[6][:, :-1]                      # w_all with a knot missing
+    with pytest.raises(ValueError, match="w_all"):
+        call(bad)
+    bad = list(args)
+    bad[7] = bad[7].to(torch.float64)            # feasible must be bool
     with pytest.raises(ValueError, match="feasible"):
         call(bad)
 
@@ -321,21 +367,123 @@ def test_build_hash_covers_the_headers(tmp_path, monkeypatch):
     assert after["rollout"].name.startswith("librollout_")
 
 
+# ---------------------------------------------------------------------------
+# the kernel's device code, compiled for the host
+# ---------------------------------------------------------------------------
+
+_HOST_HARNESS = r"""
+#include <cstring>
+#include "knot_chain.cuh"
+
+// Every (problem, step length) of the batch, one after the other, each as
+// the kernel's lane group runs it (rollout_group_serial).
+extern "C" int rollout_host_f64(const void* consts, const void* const* arrays,
+                                const void* const* refs, const void* const* refs_T,
+                                void* const* outs, int B, int N, int A, int surface) {
+  ffmpc::KnotConstants<double> C;
+  std::memcpy(&C, consts, sizeof(C));
+  ffmpc::RolloutArgs<double> a;
+  const double** in[7] = {&a.x0, &a.xs, &a.us, &a.K, &a.kff, &a.fs, &a.w_all};
+  for (int k = 0; k < 7; ++k) *in[k] = (const double*)arrays[k];
+  a.feasible = (const unsigned char*)arrays[7];
+  for (int f = 0; f < 6; ++f) {
+    a.ref[f] = (const double*)refs[f];
+    a.ref_T[f] = (const double*)refs_T[f];
+  }
+  a.xs_try = (double*)outs[0];
+  a.us_try = (double*)outs[1];
+  a.cost_try = (double*)outs[2];
+  a.dv_try = (double*)outs[3];
+  a.B = B;
+  a.N = N;
+  a.A = A;
+  for (int b = 0; b < B; ++b)
+    for (int ai = 0; ai < A; ++ai) {
+      if (surface)
+        ffmpc::rollout_group_serial<double, true>(C, a, b, ai);
+      else
+        ffmpc::rollout_group_serial<double, false>(C, a, b, ai);
+    }
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ on this machine: the device code cannot be built for the host")
+    d = tmp_path_factory.mktemp("rollout_host")
+    src, lib = d / "harness.cpp", d / "librollout_host.so"
+    src.write_text(_HOST_HARNESS)
+    subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I",
+                    str(_cuda_build.CSRC_DIR), "-o", str(lib), str(src)], check=True)
+    fn = ctypes.CDLL(str(lib)).rollout_host_f64
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def host_rollout(fn, setup, surface, arrays):
+    """The header's lane-group rollout of every (problem, step length) into
+    outputs that start NaN."""
+    knot = taction.make_augmented_knot(setup["mt"], TWeights(**W_KW), surface)
+    consts = rc.pack_knot_consts(knot.model, knot.W, knot.surface, torch.float64)
+    args = [a.contiguous() for a in port_args(setup, arrays)]
+    outs = [torch.full(shape, float("nan"), dtype=torch.float64)
+            for shape in ((BN, NA, NH + 1, 21), (BN, NA, NH, 7), (BN, NA), (BN, NA))]
+    p6 = ctypes.c_void_p * 6
+    fn(consts.data_ptr(), (ctypes.c_void_p * 8)(*(a.data_ptr() for a in args)),
+       p6(*(a.data_ptr() for a in setup["t_rr"])), p6(*(a.data_ptr() for a in setup["t_rT"])),
+       (ctypes.c_void_p * 4)(*(o.data_ptr() for o in outs)), BN, NH, NA, int(surface))
+    return outs
+
+
+@pytest.mark.parametrize("surface", [True, False], ids=["contact", "free"])
+def test_host_build_of_the_device_code_matches_reference(setup, host_lib, surface):
+    got = host_rollout(host_lib, setup, surface, setup["arrays"])
+    want = port_rollout(setup, surface, setup["arrays"])
+    assert all(bool(torch.isfinite(w).all()) for w in want)
+    assert_close(got, want, 1e-11, 0.0, f"host build, surface={surface}")
+
+
+def test_host_build_non_finite_sets_match_reference(setup, host_lib):
+    """The non-finite case above (a huge gap at one knot of problem 0, a NaN
+    gain of problem 1) through the host build: the same non-finite entries,
+    costs and gap sums as the plain version."""
+    x0, xs, us, K, kff, fs, feas = (np.array(a) for a in setup["arrays"])
+    fs[0, 2] = 1e200
+    K[1, 1, 3, 5] = np.nan
+    arrays = (x0, xs, us, K, kff, fs, feas)
+    got = host_rollout(host_lib, setup, True, arrays)
+    want = port_rollout(setup, True, arrays)
+    assert not bool(torch.isfinite(want[2]).all())
+    assert_close(got, want, 1e-11, 0.0, "host build, non-finite case")
+
+
+# ---------------------------------------------------------------------------
+# the kernel on the card (python -m pytest --noconftest -m cuda)
+# ---------------------------------------------------------------------------
+
+def need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the rollout kernel has no CPU build")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("surface", [True, False], ids=["contact", "free"])
 def test_cuda_kernel_matches_plain_version(setup, surface):
     """The hand-written kernel against its plain version on the card,
-    float64, at the tolerance of the JAX package's kernel-vs-scan test
-    (rtol 5e-9 / atol 1e-10 of scale).  `python3 chip_smoke.py` runs the
-    same comparison at the flagship shapes."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the rollout kernel has no CPU build")
+    float64, all four outputs, at the tolerance of the JAX package's
+    kernel-vs-scan test (rtol 5e-9 / atol 1e-10 of scale).  `python3
+    chip_smoke.py` runs the same comparison at the flagship shapes."""
+    need_card()
     knot = taction.make_augmented_knot(
         make_panda_model("plant", dtype=torch.float64, device="cuda"), TWeights(**W_KW),
         surface)
-    consts = rc.pack_knot_consts(knot.model, knot.W, knot.surface, torch.float64)
-    x0, xs, us, K, kff, fs, feas = setup["arrays"]
-    args = ([T(a).cuda() for a in (x0, xs, us, K, kff, fs)] + [torch.as_tensor(feas).cuda()]
+    consts = rc.pack_knot_consts(knot.model, knot.W, knot.surface, torch.float64).cuda()
+    args = ([a.cuda() for a in port_args(setup, setup["arrays"])]
             + [type(setup["t_rr"])(*(a.cuda() for a in r)) for r in (setup["t_rr"], setup["t_rT"])])
     before = rc.rollout.launches
     got = rc.rollout(knot, consts, *args, NA)
@@ -343,6 +491,88 @@ def test_cuda_kernel_matches_plain_version(setup, surface):
     assert rc.rollout.launches == before + 1
     want = rc.rollout_reference(knot, *args, NA)
     assert_close([g.cpu() for g in got], [w.cpu() for w in want], 5e-9, 1e-10, "kernel")
+
+
+@pytest.mark.cuda
+def test_cuda_non_finite_sets_match_plain_version(setup):
+    """The non-finite case above (a huge gap at one knot of problem 0, a NaN
+    gain of problem 1) on the card, float64: the same non-finite entries,
+    costs and gap sums as the plain version, the rest within rtol 5e-9."""
+    need_card()
+    knot = taction.make_augmented_knot(
+        make_panda_model("plant", dtype=torch.float64, device="cuda"), TWeights(**W_KW), True)
+    consts = rc.pack_knot_consts(knot.model, knot.W, knot.surface, torch.float64).cuda()
+    x0, xs, us, K, kff, fs, feas = (np.array(a) for a in setup["arrays"])
+    fs[0, 2] = 1e200
+    K[1, 1, 3, 5] = np.nan
+    args = ([a.cuda() for a in port_args(setup, (x0, xs, us, K, kff, fs, feas))]
+            + [type(setup["t_rr"])(*(a.cuda() for a in r)) for r in (setup["t_rr"], setup["t_rT"])])
+    got = rc.rollout(knot, consts, *args, NA)
+    want = rc.rollout_reference(knot, *args, NA)
+    assert not bool(torch.isfinite(want[2]).all())
+    assert_close([g.cpu() for g in got], [w.cpu() for w in want], 5e-9, 1e-10, "non-finite")
+
+
+def pooled(knot, consts, args, k, A):
+    """The batch as consecutive launches of k problems (the last n % k left
+    out), outputs concatenated, and the inputs cut to match."""
+    import chip_smoke as cs
+    n = args[0].shape[0] // k * k
+    outs = [rc.rollout(knot, consts, *cs.rollout_slice(args, i, i + k), A)
+            for i in range(0, n, k)]
+    return cs.rollout_slice(args, 0, n), tuple(torch.cat(f) for f in zip(*outs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("N", [1, 40])
+@pytest.mark.parametrize("B", [1, 3, 1024])
+def test_cuda_kernel_at_flagship_shapes(B, N, dtype):
+    """The flagship knot on the seeded inputs of ``chip_smoke.py``, 10 step
+    lengths.  float64: all four outputs within rtol 5e-9 / atol 1e-10 of
+    scale, equal non-finite sets.  float32: ``chip_smoke.py``'s rollout
+    gates against the plain float64 version; launches of 1 or 3 problems are
+    pooled over 1,024 problems, since those gates count shares of problems."""
+    need_card()
+    import chip_smoke as cs
+    f64 = dtype == "float64"
+    knot, consts, args = cs.seeded_rollout_args(1024 if not f64 else B, N,
+                                                getattr(torch, dtype), 7)
+    if f64:
+        out_k = rc.rollout(knot, consts, *args, cs.N_ALPHAS)
+    else:
+        args, out_k = pooled(knot, consts, args, B, cs.N_ALPHAS)
+    torch.cuda.synchronize()
+    knot64 = cs.flagship_knot(torch.float64)
+    rec = cs.rollout_gate(knot, args, out_k, knot64)
+    assert rec["ok"], rec
+
+
+@pytest.mark.cuda
+def test_cuda_rollout_takes_device_constants_and_copies_nothing(setup):
+    """A launch reads the constants where the caller put them on the card:
+    it records no copy (no ``aten::copy_`` or ``aten::_to_copy``) and host
+    constants for card tensors are refused, not copied."""
+    need_card()
+    knot = taction.make_augmented_knot(
+        make_panda_model("plant", dtype=torch.float64, device="cuda"), TWeights(**W_KW), True)
+    consts = rc.pack_knot_consts(knot.model, knot.W, knot.surface, torch.float64)
+    args = ([a.cuda() for a in port_args(setup, setup["arrays"])]
+            + [type(setup["t_rr"])(*(a.cuda() for a in r)) for r in (setup["t_rr"], setup["t_rT"])])
+    with pytest.raises(ValueError, match="consts"):
+        rc.rollout(knot, consts, *args, NA)
+    consts = consts.cuda()
+    first = rc.rollout(knot, consts, *args, NA)
+    torch.cuda.synchronize()
+    launches = rc.rollout.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        second = rc.rollout(knot, consts, *args, NA)
+        torch.cuda.synchronize()
+    assert rc.rollout.launches == launches + 1
+    ops = {e.name for e in prof.events()}
+    assert not ops & {"aten::copy_", "aten::_to_copy", "aten::to"}, ops
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

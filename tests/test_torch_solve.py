@@ -229,3 +229,73 @@ def test_unsupported_settings_raise(problem):
         t_make(problem["mt"], t_weights(), TSettings(), t_traj(),
                TEpisode(controller="force_feedback", horizon=N), problem["q0"],
                dtype=torch.float32, device="cpu")
+
+
+def _accept_step_with_gap_products(S, xs, us, cost_cur, xs_try, us_try, cost_try, w_all,
+                                   dg, dq):
+    """The acceptance as ``solver/fddp.py::accept_step`` read before the
+    rollout formed the gap sum (the gap products in, dv formed here)."""
+    from ffmpc_tpu_torch.solver.fddp import LineSearchStep, _select
+    B, A = cost_try.shape
+    alphas = 0.5 ** torch.arange(A, dtype=xs.dtype, device=xs.device)
+    dV = cost_cur[:, None] - cost_try
+    dx_all = xs[:, None] - xs_try
+    dv = -torch.sum(w_all[:, None] * dx_all, dim=(2, 3))
+    d1 = dg[:, None] + dv
+    d2 = dq[:, None] - 2.0 * dv
+    dVexp = alphas * (d1 + 0.5 * alphas * d2)
+    finite = torch.isfinite(cost_try)
+    cost_guard = (S.neg_step_cost_factor * cost_cur + S.neg_step_cost_slack)[:, None]
+    ok_pos = (dVexp >= 0) & (
+        ((d1.abs() < S.th_grad) & (cost_try < cost_guard))
+        | (dV > S.th_acceptstep * dVexp))
+    ok_neg = ((dVexp < 0) & (dV > S.th_acceptnegstep * dVexp)
+              & (cost_try < cost_guard))
+    ok = finite & (ok_pos | ok_neg)
+    accepted = ok.any(dim=1)
+    sel = torch.argmax(ok.to(torch.int8), dim=1)
+    rows = torch.arange(B, device=xs.device)
+    return LineSearchStep(
+        accepted=accepted, alpha=alphas[sel],
+        xs=_select(accepted, xs_try[rows, sel], xs),
+        us=_select(accepted, us_try[rows, sel], us),
+        cost=torch.where(accepted, cost_try[rows, sel], cost_cur))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_accept_step_takes_the_rollouts_gap_sum(seed):
+    """``accept_step`` given the rollout's ``dv_try`` picks the same step
+    length and the same trajectory as the formula it held before, on seeded
+    cases with non-finite costs (inf and NaN rows, a problem with none
+    finite) and with ties: several step lengths passing, alpha = 1 among
+    them, equal costs across step lengths."""
+    from ffmpc_tpu_torch.solver import fddp as tfddp
+    rng = np.random.default_rng(seed)
+    nb, na, nh, nx, nu = 8, 10, 4, 21, 7
+    xs = torch.as_tensor(rng.normal(size=(nb, nh + 1, nx)))
+    us = torch.as_tensor(rng.normal(size=(nb, nh, nu)))
+    xs_try = xs[:, None] + torch.as_tensor(0.05 * rng.normal(size=(nb, na, nh + 1, nx)))
+    us_try = us[:, None] + torch.as_tensor(0.05 * rng.normal(size=(nb, na, nh, nu)))
+    w_all = torch.as_tensor(rng.normal(size=(nb, nh + 1, nx)))
+    cost_cur = torch.as_tensor(10.0 + rng.random(nb))
+    cost_try = cost_cur[:, None] - torch.as_tensor(rng.random((nb, na)))
+    cost_try[0, 1:] = float("inf")                 # only alpha = 1 finite
+    cost_try[1, :] = float("nan")                  # nothing finite
+    cost_try[2, 0] = float("nan")                  # alpha = 1 NaN, the rest pass
+    cost_try[3, :] = cost_try[3, 0]                # equal costs at every step length
+    cost_try[4, 0] = cost_try[4, 1]                # a tie between alpha = 1 and 1/2
+    dg = torch.as_tensor(-rng.random(nb))
+    dq = torch.as_tensor(-rng.random(nb))
+    S = tfddp.FDDPSettings()
+    want = _accept_step_with_gap_products(S, xs, us, cost_cur, xs_try, us_try, cost_try,
+                                          w_all, dg, dq)
+    # dv_try as rollout_reference forms it
+    dv = -torch.sum(w_all[:, None] * (xs[:, None] - xs_try), dim=(2, 3))
+    got = tfddp.accept_step(S, xs, us, cost_cur, xs_try, us_try, cost_try, dv, dg, dq)
+    for name, a, b in zip(tfddp.LineSearchStep._fields, got, want):
+        assert torch.equal(a, b), name
+    assert bool(want.accepted[0]) and want.alpha[0].item() == 1.0
+    assert not bool(want.accepted[1])
+    assert torch.equal(want.xs[1], xs[1]) and want.cost[1] == cost_cur[1]
+    assert bool(want.accepted[3]) and want.alpha[3].item() == 1.0
+    assert bool(want.accepted[4]) and want.alpha[4].item() == 1.0
