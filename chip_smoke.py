@@ -32,8 +32,11 @@ the closed loop's and the ensemble's beside; the probes' on their entry
 points), its error against the plain version, its time, the plain version's
 time and the card's bound for the same work.  Times are CUDA events around
 back-to-back calls, so for a launch-bound call they are the host's launch
-interval; the math probe and `torch.sin` are also timed as device time (20
-calls captured in one CUDA graph, `ms_device` / `library_ms_device`).  Needs
+interval; the probes are also timed as device time (20 calls captured in
+one CUDA graph: `ms_device`, and `library_ms_device` for `torch.sin`), with
+the kernels one wrapper call launches (1) and, for the stream and round-trip
+kernels, ptxas' stack and spills (gated: no float32 spill, a stack frame
+under 256 B).  Needs
 a CUDA device: without one it exits non-zero before printing any result.
 """
 
@@ -1554,6 +1557,25 @@ def math_host_steps_us(pmath, x, n=2000):
     return res
 
 
+PROBE_STACK_LIMIT = 256   # bytes of stack frame a float32 probe kernel may have
+
+
+def probe_ptxas_gate():
+    """ptxas' registers, stack frame and spills of the stream kernel's six
+    instantiations and the round trip (the probes library, float32).  Fails
+    if one is missing, spills, or has a stack frame of PROBE_STACK_LIMIT bytes
+    or more."""
+    usage = [r for r in ptxas_usage(_cuda_build.build_all().logs["probes"])
+             if "stream_kernel" in r["function"] or "roundtrip_kernel" in r["function"]]
+    n_stream = sum("stream_kernel" in r["function"] for r in usage)
+    bad = [r for r in usage if r.get("spill_bytes_with_callees", 1) != 0
+           or r.get("stack_frame_bytes", PROBE_STACK_LIMIT) >= PROBE_STACK_LIMIT]
+    if n_stream != 6 or len(usage) != 7 or bad:
+        raise RuntimeError(f"probe kernels: spills, a stack frame of {PROBE_STACK_LIMIT} B or "
+                           f"more, or a kernel missing from ptxas' report: {usage}")
+    return usage
+
+
 def phase_probes():
     """The four probe kernels of csrc/probes.cu through their entry points
     (ffmpc_tpu_torch/tools/probe_*.py), each with its own gate: every math op
@@ -1563,9 +1585,11 @@ def phase_probes():
     output finite; the round trip byte-exact with the accumulator within
     1e-5.  The launch counts are read around each entry point's run, the
     stream kernel's per stage (the probes are no part of the solver's
-    path).  Then each
-    kernel's time against its plain version's and its bound.  Returns the
-    four entries of the `kernels` line."""
+    path).  Then ptxas' figures of the stream and round-trip kernels (no
+    float32 spill, a stack frame under PROBE_STACK_LIMIT), and each kernel's
+    time (the host's launch interval and the device time) against its plain
+    version's and its bound, with the launches one wrapper call makes (1).
+    Returns the four entries of the `kernels` line."""
     from ffmpc_tpu_torch.tools import probe_dma_roundtrip as prt
     from ffmpc_tpu_torch.tools import probe_mosaic as pmath
     from ffmpc_tpu_torch.tools import probe_mosaic2 as pstream
@@ -1589,6 +1613,8 @@ def phase_probes():
     if n_math < len(pmath.OPS) or min(n_stream.values()) < 1 or n_rt < 1:
         raise RuntimeError(f"probe kernels not launched: {n_math}, {n_stream}, {n_rt}")
 
+    ptxas = probe_ptxas_gate()
+
     x = pmath.probe_input()
     by_op, device_source = math_probe_times(pmath, x)
     knots, term = pstream.probe_inputs()
@@ -1596,31 +1622,49 @@ def phase_probes():
     for st in pstream.STAGES:
         tm = term if st == 6 else None
         nbytes, flops = stream_bytes_flops(st)
-        by_stage[st] = {"ms": cuda_time_ms(lambda: pstream.stream_stage(knots, st, tm)),
+        call = lambda: pstream.stream_stage(knots, st, tm)  # noqa: E731
+        by_stage[st] = {"ms": cuda_time_ms(call), "ms_device": graph_time_ms(call),
+                        "launches_per_call": kernel_launches(call),
                         "plain_ms": cuda_time_ms(lambda: pstream.stream_reference(knots, st, tm),
                                                  reps=1, rounds=3),
                         **bound_record(nbytes, flops)}
     rk = prt.probe_inputs()
-    rt_ms = cuda_time_ms(lambda: prt.roundtrip(rk))
-    rt_plain = cuda_time_ms(lambda: prt.roundtrip_reference(rk))
+    rt_call = lambda: prt.roundtrip(rk)  # noqa: E731
+    rt = {"ms": cuda_time_ms(rt_call), "ms_device": graph_time_ms(rt_call),
+          "launches_per_call": kernel_launches(rt_call),
+          "plain_ms": cuda_time_ms(lambda: prt.roundtrip_reference(rk)),
+          # the main output alone, as one PyTorch call computes it (no single
+          # call computes both outputs, so library_ms stays null)
+          "knots_times_2_ms_device": graph_time_ms(lambda: rk * 2.0)}
     emit({"phase": "probes", "timing_float32": {"math_by_op": by_op, "stream_by_stage": by_stage,
-                                                "roundtrip": {"ms": rt_ms, "plain_ms": rt_plain}}})
+                                                "roundtrip": rt},
+          "ptxas": ptxas})
+    many = {f"stream stage {st}": r["launches_per_call"] for st, r in by_stage.items()
+            if r["launches_per_call"] != 1}
+    if rt["launches_per_call"] != 1:
+        many["roundtrip"] = rt["launches_per_call"]
+    if many:
+        raise RuntimeError(f"a probe wrapper call runs more than its kernel: {many}")
 
     def stream_entry(name, stages, replaces):
         runs = [r for st in stages
                 for r in (res_stream["stages"][st], res_stream["stages"][st].get("spd")) if r]
         errs = [o["max_abs_err"] for r in runs for o in r["outputs"].values()]
         tot = {k: sum(by_stage[st][k] for st in stages)
-               for k in ("ms", "plain_ms", "bytes_ms", "operations_ms")}
+               for k in ("ms", "ms_device", "plain_ms", "bytes_ms", "operations_ms")}
         b = max(tot["bytes_ms"], tot["operations_ms"])
         return {"name": name, "route": "cuda", "source": "ffmpc_tpu_torch/csrc/probes.cu",
                 "replaces": replaces, "launches": sum(n_stream[st] for st in stages),
                 "launches_by_stage": {str(st): n_stream[st] for st in stages},
                 "max_abs_err": max(errs),
-                "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": b,
+                "ms": tot["ms"], "ms_device": tot["ms_device"], "plain_ms": tot["plain_ms"],
+                "bound_ms": b,
                 "bound_by": "bytes" if tot["bytes_ms"] >= tot["operations_ms"] else "operations",
                 "library_ms": None, "entry_point": "ffmpc_tpu_torch.tools.probe_mosaic2",
-                "note": f"one launch per stage {list(stages)}, times summed",
+                "note": f"one launch per stage {list(stages)}, times summed; ms: the host's "
+                        "launch interval (CUDA events around 5 back-to-back wrapper calls); "
+                        "ms_device: device time (20 calls in one CUDA graph)",
+                "ptxas": [r for r in ptxas if "stream_kernel" in r["function"]],
                 "by_stage": {str(st): by_stage[st] for st in stages}}
 
     n_bytes_math = 2 * x.numel() * 4
@@ -1649,8 +1693,15 @@ def phase_probes():
         {"name": "probe_roundtrip", "route": "cuda", "source": "ffmpc_tpu_torch/csrc/probes.cu",
          "replaces": "tools/probe_dma_roundtrip.py:48", "launches": n_rt,
          "max_abs_err": max(res_rt["vs_plain"].values()),
-         "ms": rt_ms, "plain_ms": rt_plain, **bound_record(rt_bytes, rt_flops),
-         "library_ms": None, "entry_point": "ffmpc_tpu_torch.tools.probe_dma_roundtrip"},
+         "ms": rt["ms"], "ms_device": rt["ms_device"], "plain_ms": rt["plain_ms"],
+         **bound_record(rt_bytes, rt_flops), "library_ms": None,
+         "knots_times_2_ms_device": rt["knots_times_2_ms_device"],
+         "launches_per_call": rt["launches_per_call"],
+         "ptxas": [r for r in ptxas if "roundtrip_kernel" in r["function"]],
+         "entry_point": "ffmpc_tpu_torch.tools.probe_dma_roundtrip",
+         "note": "ms: the host's launch interval; ms_device: device time (20 calls in one "
+                 "CUDA graph); knots_times_2_ms_device: device time of `knots * 2.0` alone, "
+                 "the round trip's main output as one PyTorch call computes it"},
     ]
 
 

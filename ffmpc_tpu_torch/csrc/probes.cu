@@ -14,11 +14,11 @@
 //
 // Bounds.  Every probe is bound by bytes on paper: the math probe reads and
 // writes 256 floats (2 KB, under a microsecond at 3.35 TB/s: launch-bound);
-// the stream stages read one (C=1288, Bt=128) float32 tile a knot, 2.6 MB for
-// N=4, and stage 5 does about 80 kFLOP a lane a knot (41 MFLOP in all, 0.6 us
-// at 67 TFLOP/s); the round trip moves 256 KB in and 256 KB out.  In practice
-// each is a handful of small blocks and its time is the launch and the
-// per-thread latency chain.
+// the stream stages read up to 595 of a knot's 1288 rows (N=4, 128 lanes:
+// at most 1.2 MB) and write up to 608 rows a knot, and stage 5 does about
+// 64 kFLOP a lane a knot (33 MFLOP in all, 0.5 us at 67 TFLOP/s); the round
+// trip moves 256 KB in and 256 KB out.  At these sizes the floor is a launch
+// and the chain of dependent steps inside one lane's knots.
 //
 // Design.
 // - Math: one thread an element, the op chosen by an argument.  No fast-math
@@ -26,27 +26,44 @@
 //   csrc/knot_chain.cuh calls.  1 + x*x is formed with __fmul_rn /
 //   __fadd_rn so that no FMA contraction changes atan2's second argument
 //   against the float32 reference.
-// - Stream: the TPU probe staged one knot's whole (C, Bt) tile in VMEM.  On
-//   this card that tile is 1288 x 128 x 4 B = 659 KB, three times the 227 KB
-//   a block can have, so it is not carried over.  Lanes are independent
-//   problems and the layout is channel-major ((N, C, Bt): lane fastest), so
-//   here ONE THREAD OWNS ONE LANE and reads its column straight from device
-//   memory: a warp's read of one channel row is one 128-byte transaction,
-//   every value is read once, and nothing is shared between lanes, so a
-//   shared-memory stage would buy nothing.  The per-lane state of stage 5
-//   (the carried 21x21 Vxx and the knot's 21x21 products) lives in the
-//   thread's local memory.  32 lanes a block.
-// - Round trip: the TPU probe's exact data path on Hopper's bulk
-//   asynchronous copy engine: per knot, one thread issues one
-//   cp.async.bulk of 512 B (one 128-lane row, 16-byte aligned) per channel
-//   into shared memory, completing on an mbarrier with the expected byte
-//   count; every thread doubles its lane into a second shared tile; one
-//   thread issues the bulk stores back, commits the group and waits for it.
-//   One block per 128 lanes, 64 KB of dynamic shared memory.
+// - Stream, the backward-step stages 2, 3 and 5 (csrc/probe_stream.cuh):
+//   a block of 128 threads (4 warps) a lane.  Its knot rows go to a
+//   two-stage ring in shared memory with 4-byte cp.async (the layout is lane
+//   fastest, so a row's lanes are 4 bytes apart; the block's threads take
+//   consecutive elements), the next knot's (stage 5) or the next round of four
+//   knots' (stages 2 and 3, whose knots are independent) started as soon as
+//   the current ones have landed.  The carried Vxx, W, Q and the gains live
+//   in shared memory; each product entry is a 21-term dot product on one
+//   thread, the thread's operand column in registers.  The 7x7 masked-SPD
+//   factor is formed by every lane of warp 0 in its registers, and each lane
+//   solves one right-hand side (21 gain columns + kff).  Stage 3 runs a
+//   round's four box QPs at once, one on lane 0 of each warp (the QP is a
+//   chain of Cholesky pivots, sqrt and reciprocal, that a warp's shuffles
+//   would only lengthen), the warp's lanes 1-7 solving that knot's gain.
+//   Four barriers a knot (stage 5) or a round.  The pair (i, j) of the value
+//   update is one thread's, so the symmetrized Vxx needs no extra pass.
+//   One lane a block reads 4 bytes of each 32-byte sector but spreads 128
+//   lanes over 128 SMs; 2 and 4 lanes a block were measured too (PERF.md):
+//   no faster for stage 5, and 4 spilled in stage 3.
+// - Stream, the copies: every row of big, k and kff that a stage writes as
+//   a copy or as zero, and out for stages 1, 4 and 6, is spread over the
+//   card in blocks of their own in the same launch (flat segments, 8 floats
+//   a thread as 16-byte vectors where aligned); out's rows 0:8 and stage 6's
+//   kff one element a thread.  So the wrapper allocates with torch.empty and
+//   a call is one launch.
+// - Round trip: Hopper's bulk asynchronous copy engine, as the TPU probe's
+//   async copies.  Blocks over (lane tile, 8-channel chunk); a two-stage
+//   ring of input and output tiles: knot t-2's rows are in flight while
+//   knot t is doubled; the rows of a knot are loaded by up to 32 threads (a
+//   row a thread, cp.async.bulk completing on the stage's mbarrier) and
+//   stored the same way as bulk groups; a thread waits for its older store
+//   group (wait_group.read 1) only when that output stage is reused.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "probe_stream.cuh"
 
 namespace {
 
@@ -74,347 +91,214 @@ __global__ void math_kernel(const float* __restrict__ x, float* __restrict__ out
 
 // ---------------------------------------------------------- probe_stream --
 
-constexpr int NX = 21, NU = 7;
-constexpr int NXXP = 448;     // rows of `big`
-constexpr int NK = 152;       // rows of `k` (stage 6)
-constexpr int NKFF = 8;       // rows of `kff` (stage 6)
-constexpr int OFF_FU = NX * NX;   // Fu rows of a knot
-constexpr int OFF_LU = 1000;      // Lu rows of a knot (stages 2-3)
-constexpr int STREAM_THREADS = 32;
+using namespace probe_stream;
 
-// Clip that keeps NaN (jnp.clip / torch.clamp semantics).
-__device__ __forceinline__ float clip(float x, float lo, float hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
-}
-
-// Lower Cholesky of Q (n x n, row-major, lower triangle read), as
-// backward_pallas._chol: the pivot's reciprocal multiplies the column.
-template <int n>
-__device__ void chol(const float* Q, float* L) {
-  for (int j = 0; j < n; ++j) {
-    float s = Q[j * n + j];
-    for (int k = 0; k < j; ++k) s -= L[j * n + k] * L[j * n + k];
-    const float d = sqrtf(s);
-    L[j * n + j] = d;
-    const float inv = 1.0f / d;
-    for (int i = j + 1; i < n; ++i) {
-      float t = Q[i * n + j];
-      for (int k = 0; k < j; ++k) t -= L[i * n + k] * L[j * n + k];
-      L[i * n + j] = t * inv;
-    }
-  }
-}
-
-// Solve L L^T x = b in place of x (b may alias x).
-template <int n>
-__device__ void chol_solve(const float* L, const float* b, float* x) {
-  float y[n];
-  for (int i = 0; i < n; ++i) {
-    float s = b[i];
-    for (int k = 0; k < i; ++k) s -= L[i * n + k] * y[k];
-    y[i] = s / L[i * n + i];
-  }
-  for (int i = n - 1; i >= 0; --i) {
-    float s = y[i];
-    for (int k = i + 1; k < n; ++k) s -= L[k * n + i] * x[k];
-    x[i] = s / L[i * n + i];
-  }
-}
-
-// Clamped rows / columns replaced by identity, +reg on the diagonal
-// (backward_pallas._masked_spd).
-template <int n>
-__device__ void masked_spd(const float* Q, const float* fr, float reg, float* Qm) {
-  for (int i = 0; i < n; ++i)
-    for (int j = 0; j < n; ++j)
-      Qm[i * n + j] = Q[i * n + j] * (fr[i] * fr[j])
-                      + (i == j ? (1.0f - fr[i]) + reg : 0.0f);
-}
-
-__device__ float qp_obj(const float* Q, const float* q, const float* c) {
-  float a = 0.0f, b = 0.0f;
-  for (int i = 0; i < NU; ++i) {
-    float Qc = 0.0f;
-    for (int k = 0; k < NU; ++k) Qc += Q[i * NU + k] * c[k];
-    a += c[i] * Qc;
-    b += q[i] * c[i];
-  }
-  return 0.5f * a + b;
-}
-
-// Projected-Newton box QP (backward_pallas._boxqp_channels): x, and the free
-// set `fr` at the result.
-__device__ void boxqp(const float* Q, const float* q, const float* lb, const float* ub,
-                      int iters, float reg, float* x, float* fr) {
-  const float eps = 1e-9f;
-  for (int i = 0; i < NU; ++i) x[i] = clip(0.0f, lb[i], ub[i]);
-  float g[NU], Qm[NU * NU], L[NU * NU], dx[NU], gf[NU], cand[4][NU], vals[4];
-  auto free_set = [&]() {
-    for (int i = 0; i < NU; ++i) {
-      float Qx = 0.0f;
-      for (int k = 0; k < NU; ++k) Qx += Q[i * NU + k] * x[k];
-      g[i] = q[i] + Qx;
-      const bool lo = (x[i] <= lb[i] + eps) && (g[i] > 0.0f);
-      const bool hi = (x[i] >= ub[i] - eps) && (g[i] < 0.0f);
-      fr[i] = (lo || hi) ? 0.0f : 1.0f;
-    }
-  };
-  for (int it = 0; it < iters; ++it) {
-    free_set();
-    masked_spd<NU>(Q, fr, reg, Qm);
-    chol<NU>(Qm, L);
-    for (int i = 0; i < NU; ++i) gf[i] = g[i] * fr[i];
-    chol_solve<NU>(L, gf, dx);
-    for (int i = 0; i < NU; ++i) {
-      cand[0][i] = x[i];
-      cand[1][i] = clip(x[i] + (-dx[i]), lb[i], ub[i]);
-      cand[2][i] = clip(x[i] + 0.5f * (-dx[i]), lb[i], ub[i]);
-      cand[3][i] = clip(x[i] + 0.25f * (-dx[i]), lb[i], ub[i]);
-    }
-    // first NaN, else the first minimum (numpy / torch argmin)
-    int best = 0;
-    for (int c = 0; c < 4; ++c) vals[c] = qp_obj(Q, q, cand[c]);
-    if (!isnan(vals[0])) {
-      float bv = vals[0];
-      for (int c = 1; c < 4; ++c) {
-        if (isnan(vals[c])) { best = c; break; }
-        if (vals[c] < bv) { best = c; bv = vals[c]; }
-      }
-    }
-    for (int i = 0; i < NU; ++i) x[i] = cand[best][i];
-  }
-  free_set();
-}
-
-struct StreamArgs {
-  const float* knots;   // (N, C, Bt)
-  const float* term;    // (64, Bt), stage 6
-  float* out;           // (8, Bt)
-  float* big;           // (N, NXXP, Bt)
-  float* k;             // (N, NK, Bt), stage 6
-  float* kff;           // (N, NKFF, Bt), stage 6
-  int N, C, Bt;
-};
-
-// Stages 1-4 (tools/probe_mosaic2.py `kernel`): stream the knots backward
-// and accumulate rows 0:8 (1, 4); stage 4 copies rows 0:441 of each knot to
-// `big`; stage 2 adds the Quu / Qu assembly with Vxx = Fx; stage 3 the
-// 4-iteration box QP on [-Lu-5, -Lu+5] and the Cholesky gain solve.
-template <int STAGE>
-__device__ void stream_body(const StreamArgs& a, int b) {
-  float acc[8];
-  for (int r = 0; r < 8; ++r) acc[r] = 0.0f;
-  for (int it = 0; it < a.N; ++it) {
-    const int t = a.N - 1 - it;
-    const float* kt = a.knots + (size_t)t * a.C * a.Bt + b;
-    auto ch = [&](int c) { return kt[(size_t)c * a.Bt]; };
-    if constexpr (STAGE >= 4) {
-      float* bt = a.big + (size_t)t * NXXP * a.Bt + b;
-      for (int r = 0; r < NXXP; ++r) bt[(size_t)r * a.Bt] = r < NX * NX ? ch(r) : 0.0f;
-    }
-    if constexpr (STAGE == 1 || STAGE == 4) {
-      for (int r = 0; r < 8; ++r) acc[r] += ch(r);
-    } else {
-      float Fx[NX * NX], Fu[NX * NU], U[NX * NU], Quu[NU * NU], v[NX], Qu[NU], Lu[NU];
-      for (int i = 0; i < NX * NX; ++i) Fx[i] = ch(i);
-      for (int i = 0; i < NX * NU; ++i) Fu[i] = ch(OFF_FU + i);
-      for (int i = 0; i < NU; ++i) Lu[i] = ch(OFF_LU + i);
-      for (int i = 0; i < NX; ++i)
-        for (int j = 0; j < NU; ++j) {
-          float s = 0.0f;
-          for (int k = 0; k < NX; ++k) s += Fx[i * NX + k] * Fu[k * NU + j];
-          U[i * NU + j] = s;
-        }
-      for (int i = 0; i < NU; ++i)
-        for (int j = 0; j < NU; ++j) {
-          float s = 0.0f;
-          for (int k = 0; k < NX; ++k) s += Fu[k * NU + i] * U[k * NU + j];
-          Quu[i * NU + j] = s + (i == j ? 0.5f : 0.0f);
-        }
-      for (int i = 0; i < NX; ++i) {
-        float s = 0.0f;
-        for (int k = 0; k < NX; ++k) s += Fx[i * NX + k] * ch(8 + k);
-        v[i] = s;
-      }
-      for (int i = 0; i < NU; ++i) {
-        float s = 0.0f;
-        for (int k = 0; k < NX; ++k) s += Fu[k * NU + i] * v[k];
-        Qu[i] = Lu[i] + s;
-      }
-      if constexpr (STAGE == 2) {
-        for (int j = 0; j < NU; ++j) acc[j] = (acc[j] + Quu[j] * 0.0f) + Qu[j];
-      } else {
-        float lb[NU], ub[NU], x[NU], fr[NU], M[NU * NU], L[NU * NU], col[NU], K0[NU];
-        for (int i = 0; i < NU; ++i) {
-          lb[i] = -Lu[i] - 5.0f;
-          ub[i] = -Lu[i] + 5.0f;
-        }
-        boxqp(Quu, Qu, lb, ub, 4, 1e-9f, x, fr);
-        for (int i = 0; i < NU * NU; ++i) M[i] = Quu[i] + ((i / NU) == (i % NU) ? 1.0f : 0.0f);
-        chol<NU>(M, L);
-        // row 0 of X = (Quu + I)^-1 U[0:7, :]: solve column by column, keep row 0
-        for (int j = 0; j < NU; ++j) {
-          float rhs[NU];
-          for (int i = 0; i < NU; ++i) rhs[i] = U[i * NU + j];
-          chol_solve<NU>(L, rhs, col);
-          K0[j] = col[0];
-        }
-        for (int j = 0; j < NU; ++j) acc[j] = (acc[j] + x[j]) + K0[j] * 0.0f;
-      }
-    }
-  }
-  for (int r = 0; r < 8; ++r) a.out[(size_t)r * a.Bt + b] = acc[r];
-}
-
-// Stage 5 (tools/probe_mosaic2.py `kernel5`): the backward step with a
-// carried 21x21 Vxx (from I), the masked SPD gain and kff solves, the
-// symmetrized Vxx_new + 1e-6 I written per knot, out = Vxx rows 0:8.
-__device__ void stream_stage5(const StreamArgs& a, int b) {
-  float Vxx[NX * NX], Vx[NX], Fx[NX * NX], Fu[NX * NU], W[NX * NX], U[NX * NU];
-  float Qxu[NX * NU], Quu[NU * NU], Qx[NX], Qu[NU], freev[NU], Qm[NU * NU], L[NU * NU];
-  float K[NU * NX], kff[NU], Quuk[NU];
-  for (int i = 0; i < NX * NX; ++i) Vxx[i] = (i / NX) == (i % NX) ? 1.0f : 0.0f;
-  for (int i = 0; i < NX; ++i) Vx[i] = 0.0f;
-  for (int it = 0; it < a.N; ++it) {
-    const int t = a.N - 1 - it;
-    const float* kt = a.knots + (size_t)t * a.C * a.Bt + b;
-    auto ch = [&](int c) { return kt[(size_t)c * a.Bt]; };
-    for (int i = 0; i < NX * NX; ++i)
-      Fx[i] = ch(i) * 0.05f + ((i / NX) == (i % NX) ? 0.9f : 0.0f);
-    for (int i = 0; i < NX * NU; ++i) Fu[i] = ch(OFF_FU + i) * 0.1f;
-    for (int i = 0; i < NX; ++i)
-      for (int j = 0; j < NX; ++j) {
-        float s = 0.0f;
-        for (int k = 0; k < NX; ++k) s += Vxx[i * NX + k] * Fx[k * NX + j];
-        W[i * NX + j] = s;
-      }
-    for (int i = 0; i < NX; ++i)
-      for (int j = 0; j < NU; ++j) {
-        float s = 0.0f;
-        for (int k = 0; k < NX; ++k) s += Vxx[i * NX + k] * Fu[k * NU + j];
-        U[i * NU + j] = s;
-      }
-    // Qxx (into Vxx: the old Vxx is no longer read), Qxu, Quu, Qx, Qu
-    for (int i = 0; i < NX; ++i)
-      for (int j = 0; j < NX; ++j) {
-        float s = 0.0f;
-        for (int k = 0; k < NX; ++k) s += Fx[k * NX + i] * W[k * NX + j];
-        Vxx[i * NX + j] = (i == j ? 0.7f : 0.0f) + s;
-      }
-    for (int i = 0; i < NX; ++i)
-      for (int j = 0; j < NU; ++j) {
-        float s = 0.0f;
-        for (int k = 0; k < NX; ++k) s += Fx[k * NX + i] * U[k * NU + j];
-        Qxu[i * NU + j] = s;
-      }
-    for (int i = 0; i < NU; ++i)
-      for (int j = 0; j < NU; ++j) {
-        float s = 0.0f;
-        for (int k = 0; k < NX; ++k) s += Fu[k * NU + i] * U[k * NU + j];
-        Quu[i * NU + j] = s + (i == j ? 1.0f : 0.0f);
-      }
-    for (int i = 0; i < NX; ++i) {
-      float s = 0.0f;
-      for (int k = 0; k < NX; ++k) s += Fx[k * NX + i] * Vx[k];
-      Qx[i] = s;
-    }
-    for (int i = 0; i < NU; ++i) {
-      float s = 0.0f;
-      for (int k = 0; k < NX; ++k) s += Fu[k * NU + i] * Vx[k];
-      Qu[i] = s + ch(8 + i);
-    }
-    for (int i = 0; i < NU; ++i) freev[i] = Qu[i] < 1e9f ? 1.0f : 0.0f;
-    masked_spd<NU>(Quu, freev, 1e-9f, Qm);
-    chol<NU>(Qm, L);
-    for (int j = 0; j < NX; ++j) {       // K[:, j] = Qm^-1 (Qxu[j, :] * fr)
-      float rhs[NU], col[NU];
-      for (int i = 0; i < NU; ++i) rhs[i] = Qxu[j * NU + i] * freev[i];
-      chol_solve<NU>(L, rhs, col);
-      for (int i = 0; i < NU; ++i) K[i * NX + j] = col[i];
-    }
-    {
-      float rhs[NU];
-      for (int i = 0; i < NU; ++i) rhs[i] = Qu[i] * freev[i];
-      chol_solve<NU>(L, rhs, kff);
-      for (int i = 0; i < NU; ++i) kff[i] = -kff[i];
-    }
-    for (int i = 0; i < NU; ++i) {
-      float s = 0.0f;
-      for (int k = 0; k < NU; ++k) s += Quu[i * NU + k] * kff[k];
-      Quuk[i] = s;
-    }
-    for (int i = 0; i < NX; ++i) {
-      float s = 0.0f;
-      for (int k = 0; k < NU; ++k) s += K[k * NX + i] * (Quuk[k] - 2.0f * Qu[k]);
-      Vx[i] = Qx[i] + s;
-    }
-    // Vxx_new = Qxx - Qxu K into W, then symmetrized + 1e-6 I into Vxx
-    for (int i = 0; i < NX; ++i)
-      for (int j = 0; j < NX; ++j) {
-        float s = 0.0f;
-        for (int k = 0; k < NU; ++k) s += Qxu[i * NU + k] * K[k * NX + j];
-        W[i * NX + j] = Vxx[i * NX + j] - s;
-      }
-    float* bt = a.big + (size_t)t * NXXP * a.Bt + b;
-    for (int i = 0; i < NX; ++i)
-      for (int j = 0; j < NX; ++j) {
-        const float v = 0.5f * (W[i * NX + j] + W[j * NX + i]) + (i == j ? 1e-6f : 0.0f);
-        Vxx[i * NX + j] = v;
-        bt[(size_t)(i * NX + j) * a.Bt] = v;
-      }
-    for (int r = NX * NX; r < NXXP; ++r) bt[(size_t)r * a.Bt] = 0.0f;
-  }
-  for (int r = 0; r < 8; ++r) a.out[(size_t)r * a.Bt + b] = Vxx[r];
-}
-
-// Stage 6 (tools/probe_mosaic2.py `kernel6`): the full kernel's I/O
-// signature: a second (64, Bt) input, three per-knot outputs.
-__device__ void stream_stage6(const StreamArgs& a, int b) {
-  float base[NX], acc[8];
-  for (int i = 0; i < NX; ++i) base[i] = a.term[(size_t)i * a.Bt + b];
-  for (int r = 0; r < 8; ++r) acc[r] = 0.0f;
-  for (int it = 0; it < a.N; ++it) {
-    const int t = a.N - 1 - it;
-    const float* kt = a.knots + (size_t)t * a.C * a.Bt + b;
-    auto ch = [&](int c) { return kt[(size_t)c * a.Bt]; };
-    float v[NU];
-    for (int i = 0; i < NU; ++i) {
-      float s = 0.0f;
-      for (int k = 0; k < NX; ++k) s += (ch(OFF_FU + k * NU + i) * 0.1f) * (ch(k) + base[k]);
-      v[i] = s;
-    }
-    float* bt = a.big + (size_t)t * NXXP * a.Bt + b;
-    float* kt_out = a.k + (size_t)t * NK * a.Bt + b;
-    float* ft = a.kff + (size_t)t * NKFF * a.Bt + b;
-    for (int r = 0; r < NXXP; ++r) bt[(size_t)r * a.Bt] = r < NX * NX ? ch(r) : 0.0f;
-    for (int r = 0; r < NK; ++r) kt_out[(size_t)r * a.Bt] = r < NU * NX ? ch(r) : 0.0f;
-    for (int r = 0; r < NKFF; ++r) ft[(size_t)r * a.Bt] = r < NU ? v[r] : 0.0f;
-    for (int r = 0; r < 8; ++r) acc[r] = (acc[r] + v[0] * 0.0f) + ch(r);
-  }
-  for (int r = 0; r < 8; ++r) a.out[(size_t)r * a.Bt + b] = acc[r];
-}
-
-template <int STAGE>
-__global__ void stream_kernel(StreamArgs a) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.Bt) return;
-  if constexpr (STAGE == 5)
-    stream_stage5(a, b);
-  else if constexpr (STAGE == 6)
-    stream_stage6(a, b);
-  else
-    stream_body<STAGE>(a, b);
-}
-
-// ------------------------------------------------------- probe_roundtrip --
+constexpr int kThreads = kGroup;   // a block: one lane group, or a flat segment's chunk
+constexpr int kCopyFloats = 8;     // floats a thread of a copy block
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Blocks of each flat segment (the copies and the per-element outputs).
+struct FlatPlan {
+  int out_blocks;   // out's 8 Bt elements, one a thread (stages 1, 4, 6)
+  int kff_blocks;   // kff's N 8 Bt elements, one a thread (stage 6)
+  int big_blocks;   // a knot's 448 Bt floats of big, kCopyFloats a thread
+  int big_copy;     // rows of big copied from the knot (the rest zero)
+  int k_blocks;     // a knot's 152 Bt floats of k (stage 6; 147 rows copied)
+};
+
+// Stage knots t0, t0 - 1, .., t0 - nk + 1 of lane b into the slots at
+// g + off, g + off + kSlot, ..
+template <int STAGE>
+__device__ __forceinline__ void stage_knots(const StreamArgs& a, float* g, int off, int t0,
+                                            int nk, int b) {
+  using Lo = Layout<STAGE>;
+  for (int idx = threadIdx.x; idx < nk * Lo::kStaged; idx += kThreads) {
+    const int r = idx / Lo::kStaged, e = idx % Lo::kStaged;
+    int row, dst;
+    staged_element<STAGE>(e, row, dst);
+    cp_async4(g + off + r * Lo::kSlot + dst, a.knots + ((size_t)(t0 - r) * a.C + row) * a.Bt + b);
+  }
+  cp_async_commit();
+}
+
+// Stages 2, 3 and 5: lane b, on the block's 128 threads.
+template <int STAGE>
+__device__ void step_block(const StreamArgs& a, float* g, int b) {
+  using Lo = Layout<STAGE>;
+  const int tid = threadIdx.x;
+  if constexpr (STAGE == 5) {
+    init5(g, tid);
+    stage_knots<STAGE>(a, g, ((a.N - 1) & 1) * Lo::kSlot, a.N - 1, 1, b);
+    for (int t = a.N - 1; t >= 0; --t) {
+      cp_async_wait_all();
+      __syncthreads();  // (A) knot t staged; the previous knot done
+      if (t > 0) stage_knots<STAGE>(a, g, ((t - 1) & 1) * Lo::kSlot, t - 1, 1, b);
+      const float* slot = g + (t & 1) * Lo::kSlot;
+      phase5_w(g, slot, tid);
+      __syncthreads();  // (B)
+      phase5_q(g, slot, tid);
+      __syncthreads();  // (C)
+      if (tid < 32) {
+        phase5_gain(g, tid);
+        __syncwarp();
+        phase5_d(g, tid);
+      }
+      __syncthreads();  // (D)
+      float* bt = a.big + (size_t)t * NXXP * a.Bt + b;
+      phase5_value(g, tid, [&](int row, float v) {
+        bt[(size_t)row * a.Bt] = v;
+        if (t == 0 && row < 8) a.out[(size_t)row * a.Bt + b] = v;
+      });
+      if (tid >= 32 && tid < 32 + NXXP - NX * NX)
+        bt[(size_t)(NX * NX + tid - 32) * a.Bt] = 0.0f;
+    }
+  } else {
+    init23<STAGE>(g, tid);
+    stage_knots<STAGE>(a, g, 0, a.N - 1, min(kRound, a.N), b);
+    for (int t0 = a.N - 1, round = 0; t0 >= 0; t0 -= kRound, ++round) {
+      const int nr = min(kRound, t0 + 1);
+      cp_async_wait_all();
+      __syncthreads();  // (A) the round staged; the previous round done
+      const int t1 = t0 - kRound;   // the next round
+      if (t1 >= 0)
+        stage_knots<STAGE>(a, g, ((round + 1) & 1) * Lo::kHalf, t1, min(kRound, t1 + 1), b);
+      const float* half = g + (round & 1) * Lo::kHalf;
+      phase23_products<STAGE>(g, half, nr, tid);
+      __syncthreads();  // (B)
+      phase23_q<STAGE>(g, half, nr, tid);
+      __syncthreads();  // (C)
+      if constexpr (STAGE == 2) {
+        phase2_acc(g, nr, tid);
+      } else {
+        phase3_solve(g, half, nr, tid);
+        __syncthreads();  // (D)
+        phase3_acc(g, nr, tid);
+      }
+    }
+    if (tid < 8) a.out[(size_t)tid * a.Bt + b] = tid < NU ? g[Lo::ACC + tid] : 0.0f;
+  }
+}
+
+// dst[e] = e < ncopy ? src[e] : 0 for the chunk's e < len (len a multiple of
+// 4; src readable up to len).
+__device__ __forceinline__ void copy_chunk(float* __restrict__ dst, const float* __restrict__ src,
+                                           int len, int ncopy, int chunk) {
+  const int base = chunk * kThreads * kCopyFloats;
+  const bool vec = ((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15) == 0;
+#pragma unroll
+  for (int v = 0; v < kCopyFloats / 4; ++v) {
+    const int e = base + (v * kThreads + (int)threadIdx.x) * 4;
+    if (e >= len) break;
+    if (vec) {
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (e + 3 < ncopy) {
+        x = *reinterpret_cast<const float4*>(src + e);
+      } else if (e < ncopy) {
+        x.x = src[e];
+        if (e + 1 < ncopy) x.y = src[e + 1];
+        if (e + 2 < ncopy) x.z = src[e + 2];
+      }
+      *reinterpret_cast<float4*>(dst + e) = x;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dst[e + q] = e + q < ncopy ? src[e + q] : 0.0f;
+    }
+  }
+}
+
+template <int STAGE>
+__device__ void flat_block(const StreamArgs& a, const FlatPlan& p, int blk) {
+  if (blk < p.out_blocks) {
+    const int j = blk * kThreads + threadIdx.x;
+    if (j < 8 * a.Bt) a.out[j] = out_acc(a, STAGE == 6, j);
+    return;
+  }
+  blk -= p.out_blocks;
+  if (blk < p.kff_blocks) {
+    const int j = blk * kThreads + threadIdx.x;
+    if (j < a.N * NKFF * a.Bt) {
+      const int t = j / (NKFF * a.Bt), i = (j / a.Bt) % NKFF, b = j % a.Bt;
+      a.kff[j] = i < NU ? kff_value(a, t, i, b) : 0.0f;
+    }
+    return;
+  }
+  blk -= p.kff_blocks;
+  if (blk < a.N * p.big_blocks) {
+    const int t = blk / p.big_blocks;
+    copy_chunk(a.big + (size_t)t * NXXP * a.Bt, a.knots + (size_t)t * a.C * a.Bt,
+               NXXP * a.Bt, p.big_copy * a.Bt, blk % p.big_blocks);
+    return;
+  }
+  blk -= a.N * p.big_blocks;
+  const int t = blk / p.k_blocks;
+  copy_chunk(a.k + (size_t)t * NK * a.Bt, a.knots + (size_t)t * a.C * a.Bt, NK * a.Bt,
+             NU * NX * a.Bt, blk % p.k_blocks);
+}
+
+// Blocks [0, lane_blocks) run the lanes (stages 2, 3, 5), the rest the flat
+// segments.
+template <int STAGE>
+__global__ void __launch_bounds__(kThreads) stream_kernel(StreamArgs a, FlatPlan p,
+                                                          int lane_blocks) {
+  extern __shared__ __align__(16) float stream_smem[];
+  if constexpr (STAGE == 2 || STAGE == 3 || STAGE == 5) {
+    if ((int)blockIdx.x < lane_blocks) {
+      step_block<STAGE>(a, stream_smem, blockIdx.x);
+      return;
+    }
+  }
+  flat_block<STAGE>(a, p, (int)blockIdx.x - lane_blocks);
+}
+
+template <int STAGE>
+int launch_stream(const StreamArgs& a, cudaStream_t s) {
+  constexpr bool lanes = STAGE == 2 || STAGE == 3 || STAGE == 5;
+  const int lane_blocks = lanes ? a.Bt : 0;
+  const int copy_chunk_floats = kThreads * kCopyFloats;
+  FlatPlan p{};
+  p.out_blocks = (STAGE == 1 || STAGE == 4 || STAGE == 6) ? (8 * a.Bt + kThreads - 1) / kThreads : 0;
+  p.kff_blocks = STAGE == 6 ? (a.N * NKFF * a.Bt + kThreads - 1) / kThreads : 0;
+  p.big_blocks = STAGE == 5 ? 0 : (NXXP * a.Bt + copy_chunk_floats - 1) / copy_chunk_floats;
+  p.big_copy = (STAGE == 4 || STAGE == 6) ? NX * NX : 0;
+  p.k_blocks = STAGE == 6 ? (NK * a.Bt + copy_chunk_floats - 1) / copy_chunk_floats : 0;
+  const long long blocks = (long long)lane_blocks + p.out_blocks + p.kff_blocks +
+                           (long long)a.N * (p.big_blocks + p.k_blocks);
+  if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  if constexpr (lanes) {
+    static_assert(sizeof(float) * Layout<STAGE>::kSize <= 48 * 1024,
+                  "a lane group's shared memory fits the default 48 KB");
+    smem = sizeof(float) * Layout<STAGE>::kSize;
+  }
+  stream_kernel<STAGE><<<(unsigned)blocks, kThreads, smem, s>>>(a, p, lane_blocks);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------- probe_roundtrip --
+
+constexpr int kRtChunk = 8;      // channels a block
+constexpr int kRtCopiers = 32;   // threads that start a knot's bulk copies
+
+// Polls until the phase with parity `phase` completes; traps (a launch
+// error, not a hung card) if it has not after 2^28 polls.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t phase) {
   uint32_t done = 0;
-  while (!done) {
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 28)) __trap();
     asm volatile(
         "{\n"
         ".reg .pred p;\n"
@@ -427,62 +311,95 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t phase) {
   }
 }
 
-// knots, out: (N, C, B) float32; acc: (8, B).  blockDim.x == Bt lanes.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// knots, out: (N, C, B) float32; acc: (8, B).  Block (tile, chunk) owns
+// lanes tile * Bt .. + Bt - 1 (a thread a lane) and channels
+// chunk * kRtChunk .. + kRtChunk - 1.
 __global__ void roundtrip_kernel(const float* __restrict__ knots, float* __restrict__ out,
                                  float* __restrict__ acc_out, int N, int C, int B) {
-  extern __shared__ __align__(128) unsigned char smem[];
+  extern __shared__ __align__(128) unsigned char rt_smem[];
   const int Bt = blockDim.x;
-  float* scr = reinterpret_cast<float*>(smem);
-  float* ostage = scr + (size_t)C * Bt;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(ostage + (size_t)C * Bt);
   const int tid = threadIdx.x;
   const int b0 = blockIdx.x * Bt;
-  const uint32_t bar_a = smem_addr(bar);
+  const int c0 = blockIdx.y * kRtChunk;
+  const int rows = min(kRtChunk, C - c0);
+  const int copiers = min(kRtCopiers, Bt);
+  const bool copier = tid < copiers;
+  float* in_buf = reinterpret_cast<float*>(rt_smem);     // [2][kRtChunk][Bt]
+  float* out_buf = in_buf + 2 * kRtChunk * Bt;           // [2][kRtChunk][Bt]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(out_buf + 2 * kRtChunk * Bt);
   const uint32_t row_bytes = (uint32_t)Bt * sizeof(float);
+  const uint32_t bar0 = smem_addr(bar);   // stage s's barrier at bar0 + 8 s
+
+  // copiers: knot it's rows into input stage it & 1 (its expect_tx already
+  // set by thread 0 before a barrier these threads have passed)
+  auto start_load = [&](int it) {
+    const int slot = it & 1, t = N - 1 - it;
+    for (int c = tid; c < rows; c += copiers) {
+      const float* src = knots + ((size_t)t * C + c0 + c) * B + b0;
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(in_buf + (size_t)(slot * kRtChunk + c) * Bt)),
+          "l"(src), "r"(row_bytes), "r"(bar0 + 8u * slot)
+          : "memory");
+    }
+  };
+
   if (tid == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar_a) : "memory");
+    for (int s = 0; s < 2; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar0 + 8u * s) : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int it = 0; it < 2 && it < N; ++it) mbar_expect(bar0 + 8u * it, row_bytes * rows);
   }
   __syncthreads();
-  float acc[8];
-  for (int r = 0; r < 8; ++r) acc[r] = 0.0f;
-  uint32_t phase = 0;
+  if (copier) {
+    start_load(0);
+    if (N > 1) start_load(1);
+  }
+
+  float acc[kRtChunk];
+#pragma unroll
+  for (int c = 0; c < kRtChunk; ++c) acc[c] = 0.0f;
   for (int it = 0; it < N; ++it) {
-    const int t = N - 1 - it;
-    if (tid == 0) {
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar_a),
-                   "r"(row_bytes * (uint32_t)C)
-                   : "memory");
-      for (int c = 0; c < C; ++c) {
-        const float* src = knots + ((size_t)t * C + c) * B + b0;
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-            "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(scr + (size_t)c * Bt)),
-            "l"(src), "r"(row_bytes), "r"(bar_a)
-            : "memory");
+    const int slot = it & 1, t = N - 1 - it;
+    mbar_wait(bar0 + 8u * slot, (uint32_t)(it >> 1) & 1u);
+    // this output stage was last read by the stores of knot it - 2
+    if (copier && it >= 2) asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+    __syncthreads();
+    const float* src = in_buf + (size_t)slot * kRtChunk * Bt;
+    float* dst = out_buf + (size_t)slot * kRtChunk * Bt;
+#pragma unroll
+    for (int c = 0; c < kRtChunk; ++c) {
+      if (c < rows) {
+        const float v = src[c * Bt + tid];
+        dst[c * Bt + tid] = v * 2.0f;
+        if (c0 + c < 8) acc[c] += v;
       }
     }
-    mbar_wait(bar_a, phase);
-    phase ^= 1u;
-    for (int c = 0; c < C; ++c) ostage[(size_t)c * Bt + tid] = scr[(size_t)c * Bt + tid] * 2.0f;
-    for (int r = 0; r < 8; ++r) acc[r] += scr[(size_t)r * Bt + tid];
-    // generic-proxy writes of ostage (and reads of scr) before the async
-    // proxy reads ostage (and the next knot's copy overwrites scr)
+    // generic-proxy writes of the output stage before the bulk stores read
+    // it, and reads of the input stage before the next load overwrites it
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if (tid == 0 && it + 2 < N) mbar_expect(bar0 + 8u * slot, row_bytes * rows);
     __syncthreads();
-    if (tid == 0) {
-      for (int c = 0; c < C; ++c) {
-        float* dst = out + ((size_t)t * C + c) * B + b0;
-        asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
-                     "r"(smem_addr(ostage + (size_t)c * Bt)), "r"(row_bytes)
+    if (copier) {
+      for (int c = tid; c < rows; c += copiers) {
+        float* gdst = out + ((size_t)t * C + c0 + c) * B + b0;
+        asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(gdst),
+                     "r"(smem_addr(dst + (size_t)c * Bt)), "r"(row_bytes)
                      : "memory");
       }
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-      asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+      if (it + 2 < N) start_load(it + 2);
     }
-    __syncthreads();
   }
-  for (int r = 0; r < 8; ++r) acc_out[(size_t)r * B + b0 + tid] = acc[r];
+  if (copier) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+#pragma unroll
+  for (int c = 0; c < kRtChunk; ++c)
+    if (c < rows && c0 + c < 8) acc_out[(size_t)(c0 + c) * B + b0 + tid] = acc[c];
 }
 
 }  // namespace
@@ -498,6 +415,8 @@ extern "C" int ffmpc_probe_math_f32(const void* x, void* out, int n, int op, voi
   return (int)cudaGetLastError();
 }
 
+// Writes every row of out and big (and, for stage 6, of k and kff): the
+// outputs need no initialization.
 extern "C" int ffmpc_probe_stream_f32(const void* knots, const void* term, void* out,
                                       void* big, void* k, void* kff, int N, int C, int Bt,
                                       int stage, void* stream) {
@@ -505,32 +424,35 @@ extern "C" int ffmpc_probe_stream_f32(const void* knots, const void* term, void*
     return (int)cudaErrorInvalidValue;
   if (stage == 6 && (term == nullptr || k == nullptr || kff == nullptr))
     return (int)cudaErrorInvalidValue;
+  if ((long long)N * C * Bt > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   StreamArgs a{(const float*)knots, (const float*)term, (float*)out, (float*)big,
                (float*)k, (float*)kff, N, C, Bt};
-  const unsigned blocks = (unsigned)((Bt + STREAM_THREADS - 1) / STREAM_THREADS);
   cudaStream_t s = (cudaStream_t)stream;
   switch (stage) {
-    case 1: stream_kernel<1><<<blocks, STREAM_THREADS, 0, s>>>(a); break;
-    case 2: stream_kernel<2><<<blocks, STREAM_THREADS, 0, s>>>(a); break;
-    case 3: stream_kernel<3><<<blocks, STREAM_THREADS, 0, s>>>(a); break;
-    case 4: stream_kernel<4><<<blocks, STREAM_THREADS, 0, s>>>(a); break;
-    case 5: stream_kernel<5><<<blocks, STREAM_THREADS, 0, s>>>(a); break;
-    default: stream_kernel<6><<<blocks, STREAM_THREADS, 0, s>>>(a); break;
+    case 1: return launch_stream<1>(a, s);
+    case 2: return launch_stream<2>(a, s);
+    case 3: return launch_stream<3>(a, s);
+    case 4: return launch_stream<4>(a, s);
+    case 5: return launch_stream<5>(a, s);
+    default: return launch_stream<6>(a, s);
   }
-  return (int)cudaGetLastError();
 }
 
 extern "C" int ffmpc_probe_roundtrip_f32(const void* knots, void* out, void* acc, int N,
                                          int C, int B, int Bt, void* stream) {
-  // one 512-byte-multiple, 16-byte-aligned row per bulk copy
-  if (N <= 0 || C <= 0 || Bt <= 0 || Bt > 1024 || B % Bt != 0 || (Bt * 4) % 16 != 0)
+  // one 16-byte-multiple, 16-byte-aligned row per bulk copy
+  if (N <= 0 || C < 8 || Bt <= 0 || Bt > 1024 || B % Bt != 0 || (Bt * 4) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = 2 * (size_t)C * Bt * sizeof(float) + 16;
-  cudaError_t e = cudaFuncSetAttribute(roundtrip_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  roundtrip_kernel<<<B / Bt, Bt, smem, (cudaStream_t)stream>>>(
+  const size_t smem = 4 * (size_t)kRtChunk * Bt * sizeof(float) + 16;
+  static size_t smem_set = 48 * 1024;
+  if (smem > smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        roundtrip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = smem;
+  }
+  const dim3 grid((unsigned)(B / Bt), (unsigned)((C + kRtChunk - 1) / kRtChunk));
+  roundtrip_kernel<<<grid, Bt, smem, (cudaStream_t)stream>>>(
       (const float*)knots, (float*)out, (float*)acc, N, C, B);
   return (int)cudaGetLastError();
 }

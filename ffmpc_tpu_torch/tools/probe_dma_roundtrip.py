@@ -6,9 +6,11 @@ knot's (C, Bt) tile from device memory into VMEM with an async copy, wrote
 2 x tile back with another, accumulated rows 0:8, and compared on the host.
 Here the kernel ``csrc/probes.cu::roundtrip_kernel`` does the same with
 Hopper's bulk asynchronous copy (``cp.async.bulk``, one 512-byte row a copy,
-completion on an ``mbarrier``; the stores as a bulk group), the pattern a
-streaming backward kernel would use.  Shapes N=4, C=64, B=256, Bt=128,
-float32, knots from ``default_rng(0)``.  The pass criterion is the TPU
+started by up to 32 threads and completing on an ``mbarrier``; the stores as
+bulk groups), pipelined over a two-stage ring so that the next knots' loads
+are in flight while a knot is doubled and stored, with blocks over lane tiles
+and 8-channel chunks: the pattern a streaming backward kernel would use.
+Shapes N=4, C=64, B=256, Bt=128, float32, knots from ``default_rng(0)``.  The pass criterion is the TPU
 probe's own: the round trip byte-exact (``err == 0.0``) and ``acc`` within
 1e-5.
 

@@ -19,9 +19,11 @@ C=1288 channels a knot, float32, knots drawn from ``default_rng(0)``):
 Layouts are the TPU probe's (channel-major, lane fastest): knots (N, C, Bt),
 out (8, Bt), big (N, 448, Bt), k (N, 152, Bt), kff (N, 8, Bt).  Rows a stage
 does not write are zero.  The kernel is ``csrc/probes.cu::stream_kernel``
-(one thread a lane; see the source for why the TPU's whole-tile staging is
-not carried over); ``stream_reference`` is its plain version.  Stage 5 starts
-from Vx = 0, Vxx = I (the TPU body multiplied its uninitialized scratch by 0).
+(the backward-step stages 2, 3 and 5 on 128 threads a lane, their arithmetic
+in ``csrc/probe_stream.cuh``; the copies and zero rows spread over the card;
+every output row written, so a call is one launch); ``stream_reference`` is
+its plain version.  Stage 5 starts from Vx = 0, Vxx = I (the TPU body
+multiplied its uninitialized scratch by 0).
 
 On the probe's random knots stage 3 is NaN in every lane (Fx is far from
 SPD, so Quu is indefinite and the Cholesky fails), as on the TPU.  So stage 3
@@ -48,6 +50,7 @@ NX, NU, N, BT, C = 21, 7, 4, 128, 1288
 NXXP, NK, NKFF, TERM_ROWS = 448, 152, 8, 64
 OFF_FU, OFF_LU = NX * NX, 1000
 STAGES = (1, 2, 3, 4, 5, 6)
+MAX_ELEMENTS = 2**31 - 1    # the kernel's element offsets are 32-bit
 
 
 def probe_inputs(device="cuda", seed: int = 0):
@@ -167,13 +170,17 @@ def stream_stage(knots, stage: int, term=None):
         raise ValueError(f"term must be ({TERM_ROWS}, {Bt}); got {tuple(term.shape)}")
     if knots.device.type == "cpu":
         return stream_reference(knots, stage, term)
+    if knots.numel() > MAX_ELEMENTS:
+        raise ValueError(f"stream_stage: knots has {knots.numel()} elements; the kernel "
+                         f"indexes at most {MAX_ELEMENTS} elements with 32-bit offsets")
     tensors = dict(knots=knots) if stage != 6 else dict(knots=knots, term=term)
     dev = check_cuda_f32("stream_stage", **tensors)
     kw = dict(dtype=torch.float32, device=dev)
-    res = {"out": torch.zeros(8, Bt, **kw), "big": torch.zeros(n_knots, NXXP, Bt, **kw)}
+    # the kernel writes every row, the zero rows too
+    res = {"out": torch.empty(8, Bt, **kw), "big": torch.empty(n_knots, NXXP, Bt, **kw)}
     if stage == 6:
-        res["k"] = torch.zeros(n_knots, NK, Bt, **kw)
-        res["kff"] = torch.zeros(n_knots, NKFF, Bt, **kw)
+        res["k"] = torch.empty(n_knots, NK, Bt, **kw)
+        res["kff"] = torch.empty(n_knots, NKFF, Bt, **kw)
 
     def ptr(name):
         return res[name].data_ptr() if name in res else None
@@ -221,11 +228,12 @@ def compare(res_k, res_p, res_64):
     return rec
 
 
-def run_stage(knots, stage: int, term=None, finite: bool = False):
-    """One stage on the kernel against the plain version (float32, and
-    float64 as the yardstick).  ``finite`` also requires every output of
-    both versions to be finite."""
-    res_k = stream_stage(knots, stage, term)
+def run_stage(knots, stage: int, term=None, finite: bool = False, kernel=None):
+    """One stage on the kernel (``kernel(knots, stage, term)``, by default
+    ``stream_stage``) against the plain version (float32, and float64 as the
+    yardstick).  ``finite`` also requires every output of both versions to be
+    finite."""
+    res_k = (kernel or stream_stage)(knots, stage, term)
     res_p = stream_reference(knots, stage, term)
     res_64 = stream_reference(knots.double(), stage, None if term is None else term.double())
     cmp = compare(res_k, res_p, res_64)

@@ -17,17 +17,32 @@ against what the TPU probe's body computes.
   the entry points asked for "cuda" raise without a card; the kernels
   themselves are held against the plain versions on the card (``cuda``
   marker), as ``chip_smoke.py`` phase ``probes`` does.
-- ``math_op``'s kernel path, reached without a card through a tensor on the
-  ``meta`` device, raises on what the kernel does not take.
+- ``math_op``'s, ``stream_stage``'s and ``roundtrip``'s kernel paths,
+  reached without a card through tensors on the ``meta`` device, raise on
+  what the kernels do not take.
+- The stream kernel's arithmetic (``csrc/probe_stream.cuh``: the step
+  stages' phases run thread by thread in turn, as the kernel's lane group
+  runs them between barriers, and the copy stages' per-element functions),
+  built with g++ for the host, against ``stream_reference`` at
+  ``STREAM_TOL`` with the same non-finite entries.
+- On the card (``cuda`` marker): the stream stages and the round trip on
+  grids with ragged edges (lanes and channels that do not fill a block, one
+  knot, seven knots, one lane tile).
 
 The JAX package is imported where it is installed; on a card's machine
 without it only the ``cuda``-marked test runs
 (``python -m pytest --noconftest tests/test_torch_probes.py -m cuda``).
 """
 
+import ctypes
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 import torch
+
+from ffmpc_tpu_torch.solver import _cuda_build
 
 from ffmpc_tpu_torch.tools import probe_dma_roundtrip as prt
 from ffmpc_tpu_torch.tools import probe_mosaic as pmath
@@ -268,3 +283,215 @@ def test_probe_kernels_match_plain_versions_on_the_card():
     assert pmath.probe_math()["ok"]
     assert pstream.probe_stream()["ok"]
     assert prt.probe_roundtrip()["ok"]
+
+
+def test_stream_and_roundtrip_kernel_paths_reject_what_the_kernels_do_not_take():
+    """The kernel paths' checks of dtype, contiguity, device and size, reached
+    without a card through tensors on the meta device.  Nothing launches."""
+    n_stream, n_rt = dict(pstream.stream_stage.launches), prt.roundtrip.launches
+    shape = (4, 1288, 128)
+    term = torch.empty(64, 128, device="meta")
+    with pytest.raises(ValueError, match="dtype"):
+        pstream.stream_stage(torch.empty(shape, dtype=torch.float64, device="meta"), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        pstream.stream_stage(torch.empty(4, 128, 1288, device="meta").transpose(1, 2), 5)
+    with pytest.raises(ValueError, match="unsupported device"):
+        pstream.stream_stage(torch.empty(shape, device="meta"), 6, term)
+    with pytest.raises(ValueError, match="elements"):
+        pstream.stream_stage(torch.empty(2, 1288, 900_000, device="meta"), 2)
+    with pytest.raises(ValueError, match="dtype"):
+        prt.roundtrip(torch.empty(4, 64, 256, dtype=torch.float64, device="meta"))
+    with pytest.raises(ValueError, match="contiguous"):
+        prt.roundtrip(torch.empty(4, 256, 64, device="meta").transpose(1, 2))
+    with pytest.raises(ValueError, match="unsupported device"):
+        prt.roundtrip(torch.empty(4, 64, 256, device="meta"))
+    assert pstream.stream_stage.launches == n_stream
+    assert prt.roundtrip.launches == n_rt
+
+
+# ---------------------------------------------------------------------------
+# the stream kernel's arithmetic, compiled for the host
+# ---------------------------------------------------------------------------
+
+_STREAM_HARNESS = r"""
+#include <cmath>
+#include <vector>
+#include "probe_stream.cuh"
+
+using namespace probe_stream;
+
+// One stage for every lane, as the kernel computes it: the step stages'
+// lane groups (stream_group_serial), the copy stages element by element.
+// Every output row is written here, as the kernel writes it.
+extern "C" int stream_host_f32(const float* knots, const float* term, float* out, float* big,
+                               float* k, float* kff, int N, int C, int Bt, int stage) {
+  StreamArgs a{knots, term, out, big, k, kff, N, C, Bt};
+  if (stage == 2 || stage == 3 || stage == 5) {
+    // shared memory starts NaN, so a read of an unwritten entry shows
+    std::vector<float> g(Layout<5>::kSize > Layout<2>::kSize ? Layout<5>::kSize
+                                                              : Layout<2>::kSize);
+    for (int b = 0; b < Bt; ++b) {
+      for (float& v : g) v = NAN;
+      if (stage == 5) stream_group_serial<5>(a, b, g.data());
+      else if (stage == 3) stream_group_serial<3>(a, b, g.data());
+      else stream_group_serial<2>(a, b, g.data());
+    }
+  } else {
+    for (int j = 0; j < 8 * Bt; ++j) out[j] = out_acc(a, stage == 6, j);
+  }
+  const int copy = (stage == 4 || stage == 6) ? NX * NX : 0;
+  for (int t = 0; t < N && stage != 5; ++t)
+    for (int e = 0; e < NXXP * Bt; ++e)
+      big[(size_t)t * NXXP * Bt + e] = e < copy * Bt ? knots[(size_t)t * C * Bt + e] : 0.0f;
+  if (stage == 6)
+    for (int t = 0; t < N; ++t)
+      for (int r = 0; r < NK; ++r)
+        for (int b = 0; b < Bt; ++b) {
+          const size_t o = ((size_t)t * NK + r) * Bt + b;
+          k[o] = r < NU * NX ? knots[((size_t)t * C + r) * Bt + b] : 0.0f;
+          if (r < NKFF)
+            kff[((size_t)t * NKFF + r) * Bt + b] = r < NU ? kff_value(a, t, r, b) : 0.0f;
+        }
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def stream_host(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ on this machine: the device code cannot be built for the host")
+    d = tmp_path_factory.mktemp("stream_host")
+    src, lib = d / "harness.cpp", d / "libstream_host.so"
+    src.write_text(_STREAM_HARNESS)
+    subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I",
+                    str(_cuda_build.CSRC_DIR), "-o", str(lib), str(src)], check=True)
+    fn = ctypes.CDLL(str(lib)).stream_host_f32
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def host_kernel(fn):
+    """``run_stage``'s kernel argument: the host build, into outputs that
+    start NaN (the kernel's are uninitialized)."""
+    def run(knots, stage, term=None):
+        n_knots, n_ch, Bt = knots.shape
+        shapes = {"out": (8, Bt), "big": (n_knots, pstream.NXXP, Bt)}
+        if stage == 6:
+            shapes.update(k=(n_knots, pstream.NK, Bt), kff=(n_knots, pstream.NKFF, Bt))
+        res = {n: torch.full(s, float("nan"), dtype=torch.float32) for n, s in shapes.items()}
+        ptr = [res[n].data_ptr() if n in res else None for n in ("out", "big", "k", "kff")]
+        assert fn(knots.data_ptr(), term.data_ptr() if stage == 6 else None, *ptr,
+                  n_knots, n_ch, Bt, stage) == 0
+        return res
+    return run
+
+
+def seeded_stream_inputs(n_knots, lanes, seed):
+    rng = np.random.default_rng(seed)
+    knots = rng.normal(size=(n_knots, pstream.C, lanes)).astype(np.float32)
+    term = rng.normal(size=(pstream.TERM_ROWS, lanes)).astype(np.float32)
+    return torch.as_tensor(knots), torch.as_tensor(term)
+
+
+@pytest.mark.parametrize("stage", pstream.STAGES)
+def test_stream_host_build_matches_plain_version(stream_host, stage):
+    knots, term = pstream.probe_inputs("cpu")
+    knots, term = knots[:, :, :LANES].contiguous(), term[:, :LANES].contiguous()
+    res = pstream.run_stage(knots, stage, term if stage == 6 else None,
+                            kernel=host_kernel(stream_host))
+    assert res["ok"], res["outputs"]
+    if stage == 3:   # the probe's knots make Quu indefinite: NaN in every lane
+        assert res["outputs"]["out"]["nonfinite"] == pstream.NU * LANES
+
+
+def test_stream_host_build_stage3_on_spd_knots(stream_host):
+    knots, _ = pstream.probe_inputs("cpu")
+    spd = pstream.spd_knots(knots[:, :, :LANES].contiguous())
+    res = pstream.run_stage(spd, 3, finite=True, kernel=host_kernel(stream_host))
+    assert res["ok"], res["outputs"]
+
+
+@pytest.mark.parametrize("n_knots,lanes", [(1, 5), (7, 3)])
+def test_stream_host_build_other_horizons(stream_host, n_knots, lanes):
+    """One knot and seven (the ring's two stages used once, and in turn over
+    an odd count), every stage; stage 3 also on SPD knots."""
+    knots, term = seeded_stream_inputs(n_knots, lanes, seed=n_knots)
+    kern = host_kernel(stream_host)
+    for stage in pstream.STAGES:
+        res = pstream.run_stage(knots, stage, term if stage == 6 else None, kernel=kern)
+        assert res["ok"], (stage, res["outputs"])
+    res = pstream.run_stage(pstream.spd_knots(knots), 3, finite=True, kernel=kern)
+    assert res["ok"], res["outputs"]
+
+
+# ---------------------------------------------------------------------------
+# the kernels on the card, on ragged grids (python -m pytest --noconftest -m cuda)
+# ---------------------------------------------------------------------------
+
+def need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the probe kernels have no CPU build")
+
+
+def assert_stage3_on_spd_knots(knots):
+    """Stage 3 on ``spd_knots(knots)``, where every output is finite: ``big``
+    equal to the plain version's, and ``out`` equal bit for bit to the
+    kernel's own on the same lanes in reverse order (other blocks, other
+    edges) and to the knots run one at a time, summed in the kernel's order
+    t = N-1 .. 0 (so across its rounds of four knots).
+
+    Against the plain version, stage 3's finite arithmetic is held at
+    STREAM_TOL on the probe's own SPD knots (the test above, and
+    ``chip_smoke.py``) and on seeded knots in the host build.  On seeded
+    knots on the card it does not hold lane for lane: the 4-iteration box QP
+    factors Quu's lower triangle while its objective reads all of the
+    unsymmetric Quu, so x still moves at the last steps, and 1-9% of the
+    lanes meet two candidates whose objectives agree within 1e-7; two
+    float32 versions may pick differently there (seed 101, lane 100, knot 3:
+    -0.531397774 against -0.531397741 in float64, the other order in
+    float32; the plain float32 version is then 2.0e-4 from float64)."""
+    spd = pstream.spd_knots(knots)
+    got = pstream.stream_stage(spd, 3)
+    assert torch.equal(got["big"], pstream.stream_reference(spd, 3)["big"])
+    out = got["out"]
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(out, pstream.stream_stage(spd.flip(2).contiguous(), 3)["out"].flip(1))
+    acc = torch.zeros_like(out)
+    for t in range(spd.shape[0] - 1, -1, -1):
+        acc = acc + pstream.stream_stage(spd[t:t + 1].contiguous(), 3)["out"]
+    assert torch.equal(out, acc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_knots,lanes", [(4, 100), (4, 101), (1, 128), (7, 128)])
+def test_stream_kernel_on_ragged_grids_matches_plain_version(n_knots, lanes):
+    """Lanes that do not fill a lane block or a copy block (100; 101, whose
+    odd knot stride also takes the copies' unaligned path), one knot and
+    seven (stages 2 and 3 take knots in rounds of four); every stage, stage 3
+    also on SPD knots."""
+    need_card()
+    knots, term = (a.cuda() for a in seeded_stream_inputs(n_knots, lanes, seed=lanes))
+    for stage in pstream.STAGES:
+        res = pstream.run_stage(knots, stage, term if stage == 6 else None)
+        assert res["ok"], (stage, res["outputs"])
+    assert_stage3_on_spd_knots(knots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,bt", [((4, 64, 128), 128), ((3, 60, 256), 128),
+                                      ((5, 12, 64), 32), ((2, 8, 8), 4)])
+def test_roundtrip_kernel_on_ragged_grids_matches_plain_version(shape, bt):
+    """One lane tile; a channel count that leaves the last 8-channel chunk
+    part-full (60, 12); an odd knot count (the ring's stages in turn); fewer
+    lanes than the 32 threads that start the bulk copies (Bt = 4)."""
+    need_card()
+    rng = np.random.default_rng(sum(shape))
+    knots = torch.as_tensor(rng.normal(size=shape).astype(np.float32), device="cuda")
+    out, acc = prt.roundtrip(knots, bt)
+    out_p, acc_p = prt.roundtrip_reference(knots, bt)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_p)
+    assert float((acc - acc_p).abs().max()) < prt.ACC_TOL
