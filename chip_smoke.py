@@ -16,7 +16,11 @@ and 1024, their resident blocks an SM and ptxas' registers and spills
 printed: no float32 build may spill; the rollout's gap sums dv_try held
 with its trajectories).
 Phases: device, build, kernels,
-small_reference, golden (the framework-free solver fixture), solve, stages
+small_reference, golden (the framework-free solver fixture), solve, classical
+(the classical controller's batched solve, x = (q, v), u = tau, nx = 14,
+N = 36, on the classical instantiations of the three kernels: each held
+against its plain version, timed and its ptxas read; the fixture's classical
+cases; B=256 and 1024 solves against plain mode), stages
 (where one iteration's time goes), probes (the four probe kernels of
 `csrc/probes.cu` through their entry points `ffmpc_tpu_torch/tools/`),
 plant (float32 against float64; the framework-free replay fixture),
@@ -28,8 +32,9 @@ The last line is `{"ok": true, "device": {...}}`; the line before it is
 `{"kernels": [...]}` with, for every kernel (backward_sweep, rollout,
 knot_diff, and the probes probe_math, probe_stream, probe_stream_io,
 probe_roundtrip), its launches (the solver kernels' on the main path, with
-the closed loop's and the ensemble's beside; the probes' on their entry
-points), its error against the plain version, its time, the plain version's
+the closed loop's, the ensemble's and the classical solve's beside; the
+probes' on their entry points; the solver kernels' classical instantiations
+under "classical"), its error against the plain version, its time, the plain version's
 time and the card's bound for the same work.  Times are CUDA events around
 back-to-back calls, so for a launch-bound call they are the host's launch
 interval; the probes are also timed as device time (20 calls captured in
@@ -56,7 +61,7 @@ from ffmpc_tpu_torch.core import KEYFRAMES, gravity_torque, make_panda_model
 from ffmpc_tpu_torch.core.dynamics import fwd_dynamics_contact
 from ffmpc_tpu_torch.core.kinematics import fk
 from ffmpc_tpu_torch.core.spatial import log3
-from ffmpc_tpu_torch.ocp.action import KnotDeriv, make_augmented_knot
+from ffmpc_tpu_torch.ocp.action import KnotDeriv, make_augmented_knot, make_classical_knot
 from ffmpc_tpu_torch.ocp.problem import build_problem_refs
 from ffmpc_tpu_torch.ocp.weights import flagship_trajectory, flagship_weights
 from ffmpc_tpu_torch.mpc.controllers import make_vertical_down_R
@@ -133,6 +138,38 @@ TOL_F64_QP = dict(rtol=1e-4, atol=1e-9)
 F32_FACTOR, F32_MEDIAN_FLOOR, F32_FLOOR = 4.0, 1e-6, 1e-5
 MIN_AGREE_F32 = 0.85
 F32_SAME_FREE_RTOL = 1e-3
+# The classical knot's checks (phase classical) add one yardstick, the plain
+# version's own distance when each of its inputs is multiplied by 1 + eps z
+# (z standard normal, seeded; eps the dtype's machine epsilon): a rounding-
+# level perturbation.  The classical contact problem's first iteration sits
+# on ties: its Quu has eigenvalues from 1e-5 (the torque weight times dt)
+# to 3.5 (along the contact force), so the box QP's minimizer can jump
+# between bound configurations on a rounding, and a rollout at a large step
+# length can diverge: under such a perturbation the plain float64 backward
+# sweep changes the free sets of a few problems in a thousand (K, kff and
+# the box width with them) and moves kff, dg and dq on the others far more
+# than TOL_F64_QP; the records print the counts.  So there a problem agrees
+# where each field is within its bar above OR within TIE_FACTOR times that
+# yardstick; at float64 at least MIN_AGREE_TIES of the problems must agree
+# and have the same free sets, and on those K and w_all keep the TOL_F64 bar
+# (they depend on the free set only); at float32 the yardstick is the larger
+# of the two.  Rollout rows whose plain float64 states pass ROLLOUT_DIVERGED
+# have diverged: at least MIN_AGREE_TIES of the rows must be diverged in both
+# versions or in neither, and the bars apply to the rows diverged in neither.
+TIE_FACTOR = 4.0
+MIN_AGREE_TIES = 0.99
+ROLLOUT_DIVERGED = 1e6
+# At float32 the classical contact problem's first iteration is not resolved
+# at all: under a one-ulp perturbation of its inputs the plain backward sweep
+# changes the free sets of about half the problems (the records print it).
+# Per-problem shares then measure which problems the
+# random draw hit; so there (`ties`, float32) the kernel's distance from the
+# plain version is held, field by field, at the median, 90th and 99th
+# percentiles over problems, to F32_FACTOR times the same percentile of the
+# yardstick, and its problems with other free sets to twice the perturbed
+# plain version's count plus TIES_FREE_SLACK of the batch.
+TIES_QUANTILES = torch.tensor([0.5, 0.9, 0.99], dtype=torch.float64)
+TIES_FREE_SLACK = 0.01
 # Whole solves, kernel mode vs plain mode at float32: decisions (iterations,
 # converged/diverged/feasible flags, and the first iteration's accepted step
 # length) must agree on at least this share.
@@ -193,8 +230,13 @@ UNILATERAL_EDGE_N = 1e-2
 DIFF_MAX_EDGE_SHARE = 1e-3
 HALF_TURN_BAND = 1e-3
 
-# the solver golden fixture's force-feedback case (tests/test_solver_golden.py)
+# the solver golden fixture (tests/test_solver_golden.py) and its weights
 GOLDEN_FIXTURE = "tests/fixtures/solver_golden.npz"
+GOLDEN_W = dict(dt_ocp=0.01, w_ee_pos=1.2e3, w_q_soft_limits=8.0,
+                w_tau_soft_limits=2.0, w_plane_z=1.2e3, w_vz=5.0e2,
+                contact_gains=(140.0, 80.0), fn_des=22.0, w_fn=28.0,
+                ff_alpha=float(np.exp(-2 * np.pi * 25.0 * 0.01)),
+                w_w=6.0e-4, w_w_soft_limits=2.0, w_y=8.0e-4)
 
 
 def emit(obj):
@@ -274,26 +316,27 @@ def device_figures(fn):
     return rec
 
 
-def random_backward_args(B, N, tight, dtype, seed):
+def random_backward_args(B, N, tight, dtype, seed, nx=NX):
     """Seeded well-conditioned backward-sweep inputs (the recipe of the
-    package's CPU tests), numpy float64 cast to `dtype` on the card."""
+    package's CPU tests) at state width `nx`, numpy float64 cast to `dtype`
+    on the card."""
     rng = np.random.default_rng(seed)
 
     def r(*s):
         return rng.normal(size=s)
 
-    eye_x, eye_u = np.eye(NX), np.eye(NU)
-    Fx = eye_x + 0.1 * r(B, N, NX, NX)
-    Fu = 0.2 * r(B, N, NX, NU)
-    Lx, Lu = r(B, N, NX), r(B, N, NU)
-    A = 0.3 * r(B, N, NX, NX)
+    eye_x, eye_u = np.eye(nx), np.eye(NU)
+    Fx = eye_x + 0.1 * r(B, N, nx, nx)
+    Fu = 0.2 * r(B, N, nx, NU)
+    Lx, Lu = r(B, N, nx), r(B, N, NU)
+    A = 0.3 * r(B, N, nx, nx)
     Lxx = A @ np.swapaxes(A, -1, -2) + 0.5 * eye_x
-    Lxu = 0.1 * r(B, N, NX, NU)
+    Lxu = 0.1 * r(B, N, nx, NU)
     Bm = 0.3 * r(B, N, NU, NU)
     Luu = Bm @ np.swapaxes(Bm, -1, -2) + 0.8 * eye_u
-    fs = 0.3 * r(B, N + 1, NX)
-    LxT = r(B, NX)
-    At = 0.3 * r(B, NX, NX)
+    fs = 0.3 * r(B, N + 1, nx)
+    LxT = r(B, nx)
+    At = 0.3 * r(B, nx, nx)
     LxxT = At @ np.swapaxes(At, -1, -2) + 0.5 * eye_x
     width = 0.05 if tight else 50.0
     lb = -width * np.abs(r(B, N, NU)) - 1e-3
@@ -316,11 +359,11 @@ def field_errors(out_a, out_b):
     return res
 
 
-def backward_flops(B, N, iters):
+def backward_flops(B, N, iters, nx=NX):
     """Floating-point operations the sweep does on inputs of this shape (the
     box QP runs a fixed iteration count, so the work does not depend on the
     data)."""
-    nx, nu, nz = NX, NU, NX + NU
+    nu, nz = NU, nx + NU
     chol = nu ** 3 / 3 + 2 * nu ** 2            # factor + one solve
     qp_iter = 2 * nu * nu + chol + 4 * (2 * nu * nu + 2 * nu)
     knot = (2 * nx * nx * nz                    # Vxx [Fx|Fu]
@@ -348,12 +391,12 @@ def knot_calc_flops(nx=NX, nu=NU, nq=7):
     return float(chain + costs)
 
 
-def rollout_flops(B, N, A):
+def rollout_flops(B, N, A, nx=NX):
     """Operations of the rollout on these shapes: per (problem, step length)
     N knots of policy update (2 nu nx), clip and knot evaluation, plus the
     terminal evaluation.  The work does not depend on the data."""
-    knot = 2 * NU * NX + 2 * NU + knot_calc_flops()
-    return B * A * (N * knot + knot_calc_flops())
+    knot = 2 * NU * nx + 2 * NU + knot_calc_flops(nx)
+    return B * A * (N * knot + knot_calc_flops(nx))
 
 
 def rollout_bytes(args, outs):
@@ -364,12 +407,15 @@ def rollout_bytes(args, outs):
     return sum(a.numel() * a.element_size() for a in tensors)
 
 
-def knot_diff_flops(terminal=False):
+def knot_diff_flops(terminal=False, family="augmented"):
     """Operations of one knot's derivatives, counted from the parts of
     csrc/knot_chain.cuh (diff_primal's stages, diff_column, diff_lxx_column):
     each multiply, add and subtract counts 1 (a fused multiply-add 2); sin,
     cos, sqrt, acos and each division 1.  A tangent pass forms only the
     links at and after its joint (4 of 7 on average over the directions).
+    A classical knot runs the same parts (its residuals without the y / w
+    terms, counted as the augmented knot's); its terminal knot's outputs
+    take the state's 14 columns, so its control columns are not counted.
     The work does not depend on the data."""
     cross, joint_rot = 9, 18
     rnea = 18 + 707 + 51 + 1042      # gravity seed, forward, tool acceleration, backward
@@ -390,11 +436,14 @@ def knot_diff_flops(terminal=False):
     solve = 130                                  # implicit-function column
     fx_cols = 0 if terminal else 7 * 56 + 7 * 56 + 7 * 28
     assembly = 294 + 756 + 1155 + 378 + 210      # Lx; Lxx over the groups' live rows
-    return float(primal + 7 * q_pass + 7 * v_pass + 21 * solve + fx_cols + assembly)
+    n_cols = 14 if (terminal and family == "classical") else 21
+    assembly *= (n_cols * (n_cols + 1) / 2) / (21 * 22 / 2)   # the upper entries a <= c
+    return float(primal + 7 * q_pass + 7 * v_pass + n_cols * solve + fx_cols + assembly)
 
 
-def diff_flops(B, N):
-    return B * (N * knot_diff_flops() + knot_diff_flops(terminal=True))
+def diff_flops(B, N, family="augmented"):
+    return B * (N * knot_diff_flops(family=family)
+                + knot_diff_flops(terminal=True, family=family))
 
 
 def diff_bytes(inputs, out):
@@ -577,6 +626,128 @@ def phase_build():
           "ptxas": {stem: ptxas_usage(log) for stem, log in built.logs.items()}})
 
 
+def perturbed(tensors, seed=0):
+    """Each tensor times 1 + eps z (z standard normal, seeded; eps its
+    dtype's machine epsilon): the rounding-level perturbation of the
+    classical checks' yardstick."""
+    out = []
+    for a in tensors:
+        g = torch.Generator(device=a.device)
+        g.manual_seed(seed + len(out))
+        eps = torch.finfo(a.dtype).eps
+        out.append((a * (1 + eps * torch.randn(a.shape, generator=g, dtype=a.dtype,
+                                               device=a.device))).contiguous())
+    return out
+
+
+def free_sets(out):
+    """Per problem and knot, the controls the gains keep (a clamped control
+    has a zero gain row)."""
+    return out[0].abs().sum(-1) != 0
+
+
+def backward_gate(args, out_k=None, ties=False):
+    """The backward kernel's outputs `out_k` on `args` (launched here if not
+    given) against the plain version's, at the gates below: float64 within
+    TOL_F64 (K, w_all) and TOL_F64_QP (the fields that follow the box QP's
+    minimizer) with equal `bad` flags; float32 against the plain float64
+    version's yardstick (F32_*), the same-free-set bar and MIN_AGREE_F32.
+    `ties`: the classical checks' gates (TIE_FACTOR).  Returns the record,
+    with "ok"."""
+    f64 = args[0].dtype == torch.float64
+    if out_k is None:
+        out_k = backward_box(*args, boxqp_iters=BOXQP_ITERS)
+    torch.cuda.synchronize()
+    out_r = backward_box_reference(*args, boxqp_iters=BOXQP_ITERS)
+    torch.cuda.synchronize()
+    kp = field_errors(out_k, out_r)
+    rec = {"B": int(args[0].shape[0]), "N": int(args[0].shape[1]),
+           "dtype": str(args[0].dtype).replace("torch.", ""),
+           "bad_flags": int(out_r[5].sum()),
+           "bad_equal": bool((out_k[5] == out_r[5]).all()),
+           "max_abs_err": {n: float(e.max()) for n, (e, _) in kp.items()},
+           "scale": {n: float(sc.max()) for n, (_, sc) in kp.items()}}
+    ok = rec["bad_equal"]
+    if ties:
+        out_y = backward_box_reference(*perturbed(args[:12]), *args[12:],
+                                       boxqp_iters=BOXQP_ITERS)
+        yard = field_errors(out_y, out_r)
+        free_k, free_r, free_y = (free_sets(o) for o in (out_k, out_r, out_y))
+        same_free = (free_k == free_r).all(dim=2).all(dim=1) & ~out_k[5] & ~out_r[5]
+        rec["free_sets_differ"] = int((~same_free).sum())
+        rec["free_sets_differ_plain_perturbed"] = int(
+            (~(free_y == free_r).all(dim=2).all(dim=1)).sum())
+    if f64 and ties:
+        rec["same_free_set_share"] = float(same_free.double().mean())
+        ok = ok and rec["same_free_set_share"] >= MIN_AGREE_TIES
+        agree = torch.ones_like(same_free)
+        rec["same_free_set_max_abs_err"] = {}
+        for n, (e, sc) in kp.items():
+            tol = TOL_F64_QP if n in QP_FIELDS else TOL_F64
+            bar = tol["atol"] + tol["rtol"] * float(sc.max())
+            agree &= (e <= bar) | (e <= TIE_FACTOR * yard[n][0])
+            rec["same_free_set_max_abs_err"][n] = float(
+                torch.where(same_free, e, torch.zeros_like(e)).max())
+            if n in ("K", "w_all"):
+                ok = ok and not bool((same_free & ~(e <= bar)).any())
+        rec["agree_share"] = float(agree.double().mean())
+        ok = ok and rec["agree_share"] >= MIN_AGREE_TIES
+    elif f64:
+        for n, (e, sc) in kp.items():
+            tol = TOL_F64_QP if n in QP_FIELDS else TOL_F64
+            ok = ok and float(e.max()) <= tol["atol"] + tol["rtol"] * float(sc.max())
+    else:
+        out_64 = backward_box_reference(*[a.double() for a in args],
+                                        boxqp_iters=BOXQP_ITERS)
+        p64 = field_errors(out_r, out_64)
+        agree = out_k[5] == out_r[5]
+        rel = {}
+        yard_rel = {}
+        for n, (e, sc) in kp.items():
+            sc = sc.clamp_min(1e-30)
+            rel_k, rel_p = e / sc, p64[n][0] / sc
+            if ties:
+                rel_p = torch.maximum(rel_p, yard[n][0] / sc)
+            yard_rel[n] = rel_p
+            agree &= rel_k <= F32_FACTOR * rel_p + F32_FLOOR
+            rel[n] = [float(rel_k.median()), float(rel_p.median())]
+            ok = ok and rel[n][0] <= F32_FACTOR * rel[n][1] + F32_MEDIAN_FLOOR
+        rec["agree_share"] = float(agree.double().mean())
+        free_k, free_r = (o[0].abs().sum(-1) != 0 for o in (out_k, out_r))
+        same_free = ((free_k == free_r).all(dim=2).all(dim=1)
+                     & ~out_k[5] & ~out_r[5])
+        rec["same_free_set_share"] = float(same_free.double().mean())
+        rec["same_free_set_max_rel_err"] = {}
+        rec["same_free_set_violations"] = {}
+        for n in ("K", "w_all"):
+            sc = kp[n][1].clamp_min(1e-30)
+            rel_k = kp[n][0] / sc
+            over = same_free & ~(rel_k <= F32_SAME_FREE_RTOL)
+            rec["same_free_set_max_rel_err"][n] = float(
+                torch.where(same_free, rel_k, torch.zeros_like(rel_k)).max())
+            rec["same_free_set_violations"][n] = int(over.sum())
+            ok = ok and (ties or not bool(over.any()))
+        rec["median_rel_err_kernel_vs_plain32__plain32_vs_plain64"] = rel
+        if ties:
+            # the tails against the yardstick's, and the free sets that
+            # differ against the perturbed plain version's (TIES_QUANTILES)
+            rec["quantiles_kernel__yardstick"] = {}
+            for n, (e, sc) in kp.items():
+                rel_k = e / sc.clamp_min(1e-30)
+                q = TIES_QUANTILES.to(rel_k.device)
+                qk = torch.quantile(rel_k.double(), q)
+                qy = torch.quantile(yard_rel[n].double(), q)
+                rec["quantiles_kernel__yardstick"][n] = [qk.tolist(), qy.tolist()]
+                ok = ok and bool((qk <= F32_FACTOR * qy + F32_FLOOR).all())
+            ok = ok and (rec["free_sets_differ"] <= 2 * rec["free_sets_differ_plain_perturbed"]
+                         + TIES_FREE_SLACK * rec["B"])
+        else:
+            ok = ok and bool(same_free.any())
+            ok = ok and rec["agree_share"] >= MIN_AGREE_F32
+    rec["ok"] = bool(ok)
+    return rec
+
+
 def phase_kernels():
     """Kernel vs plain version on the card, then timings.  Returns the
     backward_sweep entry of the `kernels` line (launches filled in later)."""
@@ -584,57 +755,9 @@ def phase_kernels():
     failures = []
 
     def check(label, args, out_k=None):
-        f64 = args[0].dtype == torch.float64
-        if out_k is None:
-            out_k = backward_box(*args, boxqp_iters=BOXQP_ITERS)
-        torch.cuda.synchronize()
-        out_r = backward_box_reference(*args, boxqp_iters=BOXQP_ITERS)
-        torch.cuda.synchronize()
-        kp = field_errors(out_k, out_r)
-        rec = {"case": label, "B": int(args[0].shape[0]), "N": int(args[0].shape[1]),
-               "dtype": str(args[0].dtype).replace("torch.", ""),
-               "bad_flags": int(out_r[5].sum()),
-               "bad_equal": bool((out_k[5] == out_r[5]).all()),
-               "max_abs_err": {n: float(e.max()) for n, (e, _) in kp.items()},
-               "scale": {n: float(sc.max()) for n, (_, sc) in kp.items()}}
-        ok = rec["bad_equal"]
-        if f64:
-            for n, (e, sc) in kp.items():
-                tol = TOL_F64_QP if n in QP_FIELDS else TOL_F64
-                ok = ok and float(e.max()) <= tol["atol"] + tol["rtol"] * float(sc.max())
-        else:
-            out_64 = backward_box_reference(*[a.double() for a in args],
-                                            boxqp_iters=BOXQP_ITERS)
-            p64 = field_errors(out_r, out_64)
-            agree = out_k[5] == out_r[5]
-            rel = {}
-            for n, (e, sc) in kp.items():
-                sc = sc.clamp_min(1e-30)
-                rel_k, rel_p = e / sc, p64[n][0] / sc
-                agree &= rel_k <= F32_FACTOR * rel_p + F32_FLOOR
-                rel[n] = [float(rel_k.median()), float(rel_p.median())]
-                ok = ok and rel[n][0] <= F32_FACTOR * rel[n][1] + F32_MEDIAN_FLOOR
-            rec["agree_share"] = float(agree.double().mean())
-            free_k, free_r = (o[0].abs().sum(-1) != 0 for o in (out_k, out_r))
-            same_free = ((free_k == free_r).all(dim=2).all(dim=1)
-                         & ~out_k[5] & ~out_r[5])
-            rec["same_free_set_share"] = float(same_free.double().mean())
-            rec["same_free_set_max_rel_err"] = {}
-            rec["same_free_set_violations"] = {}
-            for n in ("K", "w_all"):
-                sc = kp[n][1].clamp_min(1e-30)
-                rel_k = kp[n][0] / sc
-                over = same_free & ~(rel_k <= F32_SAME_FREE_RTOL)
-                rec["same_free_set_max_rel_err"][n] = float(
-                    torch.where(same_free, rel_k, torch.zeros_like(rel_k)).max())
-                rec["same_free_set_violations"][n] = int(over.sum())
-                ok = ok and not bool(over.any())
-            ok = ok and bool(same_free.any())
-            rec["median_rel_err_kernel_vs_plain32__plain32_vs_plain64"] = rel
-            ok = ok and rec["agree_share"] >= MIN_AGREE_F32
-        rec["ok"] = bool(ok)
+        rec = {"case": label, **backward_gate(args, out_k)}
         checks.append(rec)
-        if not ok:
+        if not rec["ok"]:
             failures.append(label + "/" + rec["dtype"])
         return rec
 
@@ -744,15 +867,39 @@ def rollout_errors(out_a, out_b):
     return res
 
 
-def rollout_gate(knot, args, out_k, knot64, out_r=None):
+def diverged_rows(out):
+    """(B, A): the rollout rows whose states pass ROLLOUT_DIVERGED or whose
+    cost is not finite."""
+    xmax = out[0].abs().amax(dim=(2, 3))
+    return ~(xmax <= ROLLOUT_DIVERGED) | ~torch.isfinite(out[2])
+
+
+def without_rows(out, rows):
+    """The rollout's outputs with the (B, A) `rows` set to NaN (left out of
+    rollout_errors' errors and scales)."""
+    nan = float("nan")
+    xs, us, cost, dv = (a.clone() for a in out)
+    xs[rows], us[rows], cost[rows], dv[rows] = nan, nan, nan, nan
+    return xs, us, cost, dv
+
+
+def rollout_gate(knot, args, out_k, knot64, out_r=None, ties=False):
     """The rollout kernel's outputs `out_k` on `args` against the plain
     version's (`out_r`, computed here if not given), at the gates above:
     float64 within ROLLOUT_TOL_F64 of every field's scale with equal
     non-finite sets; float32 against the plain float64 version's yardstick.
+    `ties` (the classical checks): at float64 the rows diverged in either
+    version are left out and counted (ROLLOUT_DIVERGED, MIN_AGREE_TIES).
     Returns the record, with "ok"."""
     f64 = args[1].dtype == torch.float64
     if out_r is None:
         out_r = rollout_reference(knot, *args, N_ALPHAS)
+    div_ok = True
+    if ties and f64:
+        div_k, div_r = diverged_rows(out_k), diverged_rows(out_r)
+        div_share = float((div_k == div_r).double().mean())
+        div_ok = div_share >= MIN_AGREE_TIES
+        out_k, out_r = without_rows(out_k, div_k | div_r), without_rows(out_r, div_k | div_r)
     errs = rollout_errors(out_k, out_r)
     nf_k, nf_r = (~torch.isfinite(o[2]) for o in (out_k, out_r))
     rec = {"B": int(args[1].shape[0]), "N": int(args[2].shape[1]),
@@ -761,10 +908,13 @@ def rollout_gate(knot, args, out_k, knot64, out_r=None):
            "nonfinite_rows_agree_share": float((nf_k == nf_r).double().mean()),
            "max_abs_err": {n: float(e.max()) for n, (e, _) in errs.items()},
            "scale": {n: float(sc.max()) for n, (_, sc) in errs.items()}}
+    if ties and f64:
+        rec.update(diverged_rows=int(div_r.sum()), diverged_rows_agree_share=div_share)
     if f64:
         ok = all(bool((torch.isfinite(a) == torch.isfinite(b)).all())
                  for a, b in zip(out_k, out_r))
         rec["nonfinite_sets_equal"] = ok
+        ok = ok and div_ok
         for n, (e, sc) in errs.items():
             ok = ok and (float(e.max()) <= ROLLOUT_TOL_F64["atol"]
                          + ROLLOUT_TOL_F64["rtol"] * float(sc.max()))
@@ -921,19 +1071,31 @@ def to_double_refs(refs):
     return ProblemRefs(*(a.double() for a in refs))
 
 
-def unilateral_edge(model64, W, refs_run, ref_T, xs):
+def unilateral_edge(knot64, refs_run, ref_T, xs, us):
     """Running (B, N) and terminal (B,) masks of the knots whose float64
     contact force lies within UNILATERAL_EDGE_N of the unilateral barrier's
-    bound (the knots where two float32 evaluations may take different sides)."""
-    def force(y, ref):
+    bound (the knots where two float32 evaluations may take different sides).
+    The torque: the augmented knot's torque state, the classical knot's
+    control (0 at the terminal knot).  Free-space knots have no force."""
+    B, N = us.shape[:2]
+    if not knot64.surface:
+        return (torch.zeros(B, N, dtype=torch.bool, device=xs.device),
+                torch.zeros(B, dtype=torch.bool, device=xs.device))
+    W = knot64.W
+
+    def force(x, tau, ref):
         dyn = fwd_dynamics_contact(
-            model64, y[..., :7], y[..., 7:14], y[..., 14:], nc1=True,
+            knot64.model, x[..., :7], x[..., 7:14], tau, nc1=True,
             ref_pos=ref.p_ref[..., 2] - W.z_press, baumgarte_kp=W.contact_gains[0],
             baumgarte_kd=W.contact_gains[1], damping_c=W.contact_inv_damping)
         return dyn.force[..., 0]
-    xs = xs.double()
-    f_run = force(xs[:, :-1], to_double_refs(refs_run))
-    f_T = force(xs[:, -1], to_double_refs(ref_T))
+    xs, us = xs.double(), us.double()
+    if knot64.family == "classical":
+        tau_run, tau_T = us, torch.zeros_like(us[:, 0])
+    else:
+        tau_run, tau_T = xs[:, :-1, 14:], xs[:, -1, 14:]
+    f_run = force(xs[:, :-1], tau_run, to_double_refs(refs_run))
+    f_T = force(xs[:, -1], tau_T, to_double_refs(ref_T))
     return ((f_run - W.friction_margin).abs() <= UNILATERAL_EDGE_N,
             (f_T - W.friction_margin).abs() <= UNILATERAL_EDGE_N)
 
@@ -968,6 +1130,74 @@ def main_path_diff_args(B, dtype=torch.float32):
     return knot, consts, (it["xs"], it["us"], it["refs_run"], it["ref_T"])
 
 
+def diff_gate(knot, consts, inputs, knot64):
+    """The derivative kernel against its plain version on `inputs` (xs, us,
+    refs_run, ref_T), running and terminal knots, at the gates above:
+    float64 within DIFF_TOL_F64 of every field's scale with the same
+    non-finite (knot, field) pairs; float32 against the plain float64
+    version (`knot64`, the same knot in float64) per knot, the unilateral
+    edge's knots counted.  Returns the record, with "ok"."""
+    xs, us, refs_run, ref_T = inputs
+    f64 = xs.dtype == torch.float64
+    out_k = diff_all(knot, consts, refs_run, ref_T, xs, us)
+    torch.cuda.synchronize()
+    out_p = diff_reference(knot, refs_run, ref_T, xs, us)
+    torch.cuda.synchronize()
+    rec = {"B": int(xs.shape[0]), "N": int(us.shape[1]),
+           "dtype": "float64" if f64 else "float32",
+           "nonfinite_knots_plain": {}, "max_abs_err": {}, "scale": {}}
+    ok = True
+    if f64:
+        rec["max_rel_err"] = {}
+        for (name, k, lead), (_, p, _) in zip(diff_fields(out_k), diff_fields(out_p)):
+            bad_k, bad_p = ((~torch.isfinite(per_knot(a, lead))).any(-1) for a in (k, p))
+            same = torch.equal(bad_k, bad_p)
+            both = torch.isfinite(k) & torch.isfinite(p)
+            fin = torch.isfinite(p)
+            scale = max(float(p[fin].abs().max()), 1.0) if bool(fin.any()) else 1.0
+            err = float((k - p)[both].abs().max()) if bool(both.any()) else 0.0
+            rec["nonfinite_knots_plain"][name] = int(bad_p.sum())
+            rec["max_abs_err"][name] = err
+            rec["scale"][name] = scale
+            rec["max_rel_err"][name] = err / scale
+            if not same:
+                rec.setdefault("nonfinite_knots_differ", []).append(name)
+            ok = ok and same and err <= DIFF_TOL_F64 * scale
+    else:
+        in64 = (xs.double(), us.double(), to_double_refs(refs_run), to_double_refs(ref_T))
+        out_64 = diff_reference(knot64, in64[2], in64[3], in64[0], in64[1])
+        edge_run, edge_T = unilateral_edge(knot64, refs_run, ref_T, xs, us)
+        n_knots = edge_run.numel() + edge_T.numel()
+        n_edge = int(edge_run.sum() + edge_T.sum())
+        rec.update(knots=n_knots, unilateral_edge_knots=n_edge,
+                   half_turn_knots=half_turn_knots(knot64.model, refs_run, ref_T, xs),
+                   violations={}, edge_knot_max_rel_err={}, max_abs_err_vs_plain64={},
+                   max_rel_err_kernel32__plain32={}, worst_ratio_over_floor={})
+        ok = n_edge <= DIFF_MAX_EDGE_SHARE * n_knots
+        for (name, k, lead), (_, p, _), (_, r, _) in zip(
+                diff_fields(out_k), diff_fields(out_p), diff_fields(out_64)):
+            edge = edge_run if lead == 2 else edge_T
+            scale = max(float(r.abs().max()), 1.0)
+            ek = per_knot((k.double() - r).abs(), lead).amax(-1)
+            ep = per_knot((p.double() - r).abs(), lead).amax(-1)
+            floor = DIFF_F32_FLOOR * scale
+            over = ~(ek <= DIFF_F32_FACTOR * ep + floor)    # NaN counts as over
+            rec["max_abs_err"][name] = float(per_knot((k - p).abs(), lead).max())
+            rec["max_abs_err_vs_plain64"][name] = float(ek.max())
+            rec["scale"][name] = scale
+            rec["nonfinite_knots_plain"][name] = int((~torch.isfinite(ep)).sum())
+            rec["max_rel_err_kernel32__plain32"][name] = [float(ek.max()) / scale,
+                                                          float(ep.max()) / scale]
+            rec["worst_ratio_over_floor"][name] = float(
+                ((ek - floor) / ep.clamp_min(1e-300)).max())
+            rec["violations"][name] = int((over & ~edge).sum())
+            rec["edge_knot_max_rel_err"][name] = (
+                float(ek[edge].max()) / scale if bool(edge.any()) else None)
+            ok = ok and not bool((over & ~edge).any())
+    rec["ok"] = bool(ok)
+    return rec
+
+
 def phase_diff_kernel():
     """The knot-derivative kernel against its plain version on the card at
     N=40, B=1024, running and terminal knots: seeded inputs and the main
@@ -984,66 +1214,9 @@ def phase_diff_kernel():
     checks, failures = [], []
 
     def check(label, knot, consts, inputs):
-        xs, us, refs_run, ref_T = inputs
-        f64 = xs.dtype == torch.float64
-        out_k = diff_all(knot, consts, refs_run, ref_T, xs, us)
-        torch.cuda.synchronize()
-        out_p = diff_reference(knot, refs_run, ref_T, xs, us)
-        torch.cuda.synchronize()
-        rec = {"case": label, "B": int(xs.shape[0]), "N": int(us.shape[1]),
-               "dtype": "float64" if f64 else "float32",
-               "nonfinite_knots_plain": {}, "max_abs_err": {}, "scale": {}}
-        ok = True
-        if f64:
-            rec["max_rel_err"] = {}
-            for (name, k, lead), (_, p, _) in zip(diff_fields(out_k), diff_fields(out_p)):
-                bad_k, bad_p = ((~torch.isfinite(per_knot(a, lead))).any(-1) for a in (k, p))
-                same = torch.equal(bad_k, bad_p)
-                both = torch.isfinite(k) & torch.isfinite(p)
-                fin = torch.isfinite(p)
-                scale = max(float(p[fin].abs().max()), 1.0) if bool(fin.any()) else 1.0
-                err = float((k - p)[both].abs().max()) if bool(both.any()) else 0.0
-                rec["nonfinite_knots_plain"][name] = int(bad_p.sum())
-                rec["max_abs_err"][name] = err
-                rec["scale"][name] = scale
-                rec["max_rel_err"][name] = err / scale
-                if not same:
-                    rec.setdefault("nonfinite_knots_differ", []).append(name)
-                ok = ok and same and err <= DIFF_TOL_F64 * scale
-        else:
-            in64 = (xs.double(), us.double(), to_double_refs(refs_run), to_double_refs(ref_T))
-            out_64 = diff_reference(knot64, in64[2], in64[3], in64[0], in64[1])
-            edge_run, edge_T = unilateral_edge(model64, W, refs_run, ref_T, xs)
-            n_knots = edge_run.numel() + edge_T.numel()
-            n_edge = int(edge_run.sum() + edge_T.sum())
-            rec.update(knots=n_knots, unilateral_edge_knots=n_edge,
-                       half_turn_knots=half_turn_knots(model64, refs_run, ref_T, xs),
-                       violations={}, edge_knot_max_rel_err={}, max_abs_err_vs_plain64={},
-                       max_rel_err_kernel32__plain32={}, worst_ratio_over_floor={})
-            ok = n_edge <= DIFF_MAX_EDGE_SHARE * n_knots
-            for (name, k, lead), (_, p, _), (_, r, _) in zip(
-                    diff_fields(out_k), diff_fields(out_p), diff_fields(out_64)):
-                edge = edge_run if lead == 2 else edge_T
-                scale = max(float(r.abs().max()), 1.0)
-                ek = per_knot((k.double() - r).abs(), lead).amax(-1)
-                ep = per_knot((p.double() - r).abs(), lead).amax(-1)
-                floor = DIFF_F32_FLOOR * scale
-                over = ~(ek <= DIFF_F32_FACTOR * ep + floor)    # NaN counts as over
-                rec["max_abs_err"][name] = float(per_knot((k - p).abs(), lead).max())
-                rec["max_abs_err_vs_plain64"][name] = float(ek.max())
-                rec["scale"][name] = scale
-                rec["nonfinite_knots_plain"][name] = int((~torch.isfinite(ep)).sum())
-                rec["max_rel_err_kernel32__plain32"][name] = [float(ek.max()) / scale,
-                                                              float(ep.max()) / scale]
-                rec["worst_ratio_over_floor"][name] = float(
-                    ((ek - floor) / ep.clamp_min(1e-300)).max())
-                rec["violations"][name] = int((over & ~edge).sum())
-                rec["edge_knot_max_rel_err"][name] = (
-                    float(ek[edge].max()) / scale if bool(edge.any()) else None)
-                ok = ok and not bool((over & ~edge).any())
-        rec["ok"] = bool(ok)
+        rec = {"case": label, **diff_gate(knot, consts, inputs, knot64)}
         checks.append(rec)
-        if not ok:
+        if not rec["ok"]:
             failures.append(label + "/" + rec["dtype"])
         return rec
 
@@ -1174,11 +1347,7 @@ def phase_golden():
     model = make_panda_model("plant", dtype=dtype, device="cuda")
     q0 = torch.as_tensor(KEYFRAMES["neutral"], dtype=dtype, device="cuda")
     tau_g = gravity_torque(model, q0)
-    W = OCPWeights(dt_ocp=0.01, w_ee_pos=1.2e3, w_q_soft_limits=8.0,
-                   w_tau_soft_limits=2.0, w_plane_z=1.2e3, w_vz=5.0e2,
-                   contact_gains=(140.0, 80.0), fn_des=22.0, w_fn=28.0,
-                   ff_alpha=float(np.exp(-2 * np.pi * 25.0 * 0.01)),
-                   w_w=6.0e-4, w_w_soft_limits=2.0, w_y=8.0e-4)
+    W = OCPWeights(**GOLDEN_W)
     N = 12
     x0 = torch.cat([q0, torch.zeros(7, dtype=dtype, device="cuda"), tau_g])
     refs_run, ref_T = build_problem_refs(
@@ -1370,6 +1539,394 @@ def phase_solve():
         emit(rec)
         gate("kernel mode", rec, kp, p64)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase classical: the classical controller's batched solve (x = (q, v),
+# u = tau, nx = 14, N = 36) on the classical instantiations of the kernels
+# ---------------------------------------------------------------------------
+
+CL_NX, CL_HORIZON = 14, 36
+# csrc sources of the classical instantiations (one nvcc each)
+CL_LIBRARIES = {"backward_sweep": "backward_sweep_nx14", "rollout": "rollout_classical",
+                "knot_diff": "knot_diff_classical"}
+# the fixture's classical contact case: the step lengths the JAX package's
+# solver accepts at its 10 iterations (tests/test_torch_classical.py, which
+# prints them anew when run as a script)
+GOLDEN_CONTACT_ALPHAS = (1.0, 1.0, 1.0, 1.0, 0.25, 0.25, 1.0, 0.5, 0.5, 0.25)
+
+
+def classical_knot(dtype, surface=True):
+    return make_classical_knot(flagship(dtype)[0], flagship_weights(), surface)
+
+
+def classical_warm_starts(B, q0, tau_g, rng, dtype=np.float32, horizon=CL_HORIZON):
+    """Warm starts as the main path's are built, on x = (q, v): x0 around the
+    neutral pose at rest, trajectory held at x0, controls at gravity torque."""
+    x0 = np.concatenate([q0, np.zeros(7)]).astype(dtype)
+    x0s = x0[None] + 0.02 * rng.normal(size=(B, CL_NX)).astype(dtype)
+    ts = np.full((B,), 1.2, dtype)
+    xs = np.tile(x0s[:, None, :], (1, horizon + 1, 1))
+    us = np.tile(tau_g.astype(dtype)[None, None], (B, horizon, 1))
+    return ts, x0s, xs, us
+
+
+def classical_first_iteration(B, dtype=torch.float32, surface=True):
+    """The classical solve's first iteration at batch B, as its main path
+    builds it (warm starts, seed 0; the references without a state
+    reference), for the contact or the free-space knot."""
+    model, W, traj, _, q0 = flagship(dtype)
+    knot = make_classical_knot(model, W, surface=surface)
+    tau_g = gravity_torque(model, torch.as_tensor(q0, dtype=dtype, device="cuda")).cpu().numpy()
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    ts, x0s, xs, us = (torch.as_tensor(a, device="cuda") for a in classical_warm_starts(
+        B, q0, tau_g, np.random.default_rng(0), dtype=np_dtype))
+    x_reg = torch.cat([torch.as_tensor(q0, dtype=dtype, device="cuda"),
+                       torch.zeros(7, dtype=dtype, device="cuda")])
+    refs_run, ref_T = build_problem_refs(
+        traj, ts, CL_HORIZON, W.dt_ocp, x_reg, gravity_torque(model, x0s[:, :7]),
+        make_vertical_down_R(), dtype=dtype, device="cuda")
+    refs_run = ProblemRefs(*(a.contiguous() for a in refs_run))
+    ref_T = ProblemRefs(*(a.contiguous() for a in ref_T))
+    feasible = torch.zeros(B, dtype=torch.bool, device="cuda")
+    bi = backward_inputs(diff_reference(knot, refs_run, ref_T, xs, us), x0s, xs, us,
+                         feasible, *control_bounds(knot, dtype, "cuda"))
+    return dict(knot=knot, bi=bi, refs_run=refs_run, ref_T=ref_T, x0=x0s, xs=xs, us=us)
+
+
+def classical_rollout_args(it):
+    """The rollout's inputs from a classical first iteration (`it`): K, kff
+    and the gap products from the backward kernel.  (knot, consts on the
+    card, args)."""
+    knot, dtype = it["knot"], it["xs"].dtype
+    reg = torch.full((it["xs"].shape[0],), 1e-9, dtype=dtype, device="cuda")
+    out = backward_box(*it["bi"].args, reg, reg, boxqp_iters=BOXQP_ITERS, kgain_reg=KGAIN_REG)
+    consts = pack_knot_consts(knot.model, knot.W, knot.surface, dtype, knot.family).cuda()
+    return knot, consts, (it["x0"], it["xs"], it["us"], out[0], out[1], it["bi"].fs, out[6],
+                          it["bi"].feasible, it["refs_run"], it["ref_T"])
+
+
+def classical_seeded_rollout_args(B, N, dtype, seed, surface=True):
+    """Seeded classical rollout inputs (seeded_rollout_args' recipe at
+    nx = 14).  (knot, consts on the card, args)."""
+    model, W, traj, _, q0 = flagship(dtype)
+    knot = make_classical_knot(model, W, surface=surface)
+    rng = np.random.default_rng(seed)
+
+    def T(a):
+        return torch.as_tensor(a, dtype=dtype, device="cuda").contiguous()
+
+    q = torch.as_tensor(q0, dtype=dtype, device="cuda")
+    tau_g = gravity_torque(model, q)
+    x_reg = torch.cat([q, torch.zeros(7, dtype=dtype, device="cuda")])
+    x0 = (x_reg[None] + 0.05 * T(rng.normal(size=(B, CL_NX)))).contiguous()
+    xs = (x0[:, None].repeat(1, N + 1, 1)
+          + 0.02 * T(rng.normal(size=(B, N + 1, CL_NX)))).contiguous()
+    us = (tau_g.repeat(B, N, 1) + 2.0 * T(rng.normal(size=(B, N, NU)))).contiguous()
+    K = 0.1 * T(rng.normal(size=(B, N, NU, CL_NX)))
+    kff = T(rng.normal(size=(B, N, NU)))
+    fs = 0.1 * T(rng.normal(size=(B, N + 1, CL_NX)))
+    w_all = 0.3 * T(rng.normal(size=(B, N + 1, CL_NX)))
+    feasible = torch.arange(B, device="cuda") % 2 == 1
+    refs_run, ref_T = build_problem_refs(
+        traj, torch.full((B,), 1.2, dtype=dtype, device="cuda"), N, W.dt_ocp, x_reg,
+        tau_g, make_vertical_down_R(), dtype=dtype, device="cuda")
+    refs_run = ProblemRefs(*(a.contiguous() for a in refs_run))
+    ref_T = ProblemRefs(*(a.contiguous() for a in ref_T))
+    consts = pack_knot_consts(knot.model, knot.W, knot.surface, dtype, knot.family).cuda()
+    return knot, consts, (x0, xs, us, K, kff, fs, w_all, feasible, refs_run, ref_T)
+
+
+def classical_kernel_checks(kernel, dtype, surface, B=None, N=CL_HORIZON):
+    """One classical instantiation against its plain version on the card at
+    N=36, batch B (1,024 by default), at the gates of the augmented
+    instantiation's phase: on seeded inputs and on the classical main path's
+    first-iteration inputs, for the contact (`surface`) or the free-space
+    knot.  The backward sweep, which has no knot, takes the seeded recipe
+    with the bounds inactive beside the contact knot and active beside the
+    free one.  Returns the records, each with "ok"."""
+    B = B or BATCHES[-1]
+    it = classical_first_iteration(B, dtype, surface)
+    tag = "contact" if surface else "free"
+    knot64 = classical_knot(torch.float64, surface)
+    recs = []
+    if kernel == "backward_sweep":
+        tight = not surface
+        reg = torch.full((B,), 1e-9, dtype=dtype, device="cuda")
+        cases = ((f"seeded_bounds_{'active' if tight else 'inactive'}",
+                  random_backward_args(B, N, tight, dtype, 1, nx=CL_NX)),
+                 (f"main_path_first_iteration_{tag}", list(it["bi"].args) + [reg, reg]))
+        for label, args in cases:
+            recs.append({"case": label, **backward_gate(args, ties=True)})
+    elif kernel == "knot_diff":
+        seeded = classical_seeded_rollout_args(B, N, dtype, 11, surface)
+        cases = (("seeded_" + tag, seeded[0], seeded[2][1:3] + seeded[2][8:10]),
+                 ("main_path_first_iteration_" + tag, it["knot"],
+                  (it["xs"], it["us"], it["refs_run"], it["ref_T"])))
+        for label, kn, inputs in cases:
+            consts = pack_knot_consts(kn.model, kn.W, kn.surface, dtype, kn.family)
+            recs.append({"case": label, **diff_gate(kn, consts, inputs, knot64)})
+    else:
+        for label, (kn, consts, args) in (
+                ("seeded_" + tag, classical_seeded_rollout_args(B, N, dtype, 7, surface)),
+                ("main_path_first_iteration_" + tag, classical_rollout_args(it))):
+            out_k = rollout(kn, consts, *args, N_ALPHAS)
+            torch.cuda.synchronize()
+            recs.append({"case": label, **rollout_gate(kn, args, out_k, knot64, ties=True)})
+    for rec in recs:
+        rec.update(kernel=kernel, family="classical")
+    return recs
+
+
+def classical_timing(kernel, b):
+    """The classical instantiation's time on the classical main path's
+    first-iteration inputs (float32, contact) at batch b and its bound; the
+    plain version's time at the largest batch only (one timed call: the
+    plain versions are Python loops over the knots, about as slow at every
+    batch, and their timing is this phase's largest cost)."""
+    it = classical_first_iteration(b)
+    if kernel == "backward_sweep":
+        reg = torch.full((b,), 1e-9, dtype=torch.float32, device="cuda")
+        args = list(it["bi"].args) + [reg, reg]
+        outs = backward_box(*args, boxqp_iters=BOXQP_ITERS)
+        run = lambda: backward_box(*args, boxqp_iters=BOXQP_ITERS)  # noqa: E731
+        plain = lambda: backward_box_reference(*args, boxqp_iters=BOXQP_ITERS)  # noqa: E731
+        nbytes = backward_bytes(args, outs)
+        flops = backward_flops(b, CL_HORIZON, BOXQP_ITERS, nx=CL_NX)
+    elif kernel == "knot_diff":
+        knot = it["knot"]
+        consts = pack_knot_consts(knot.model, knot.W, knot.surface, torch.float32, knot.family)
+        xs, us, refs_run, ref_T = inputs = (it["xs"], it["us"], it["refs_run"], it["ref_T"])
+        out = diff_all(knot, consts, refs_run, ref_T, xs, us)
+        run = lambda: diff_all(knot, consts, refs_run, ref_T, xs, us)  # noqa: E731
+        plain = lambda: diff_reference(knot, refs_run, ref_T, xs, us)  # noqa: E731
+        nbytes = diff_bytes(inputs, out)
+        flops = diff_flops(b, CL_HORIZON, family="classical")
+    else:
+        knot, consts, args = classical_rollout_args(it)
+        outs = rollout(knot, consts, *args, N_ALPHAS)
+        run = lambda: rollout(knot, consts, *args, N_ALPHAS)  # noqa: E731
+        plain = lambda: rollout_reference(knot, *args, N_ALPHAS)  # noqa: E731
+        nbytes = rollout_bytes(args, outs)
+        flops = rollout_flops(b, CL_HORIZON, N_ALPHAS, nx=CL_NX)
+    ms = cuda_time_ms(run)
+    plain_ms = cuda_time_ms(plain, reps=1, rounds=1) if b == BATCHES[-1] else None
+    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    flop_ms = flops / PEAK_FP32_FLOPS * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(byte_ms, flop_ms),
+            "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
+            "bytes_ms": byte_ms, "operations_ms": flop_ms}
+
+
+def classical_residency(kernel):
+    """ptxas' registers, stack and spills of the classical instantiation's
+    kernels, and the resident blocks an SM of its float32 and float64
+    builds."""
+    usage = {}
+    for rec in ptxas_usage(_cuda_build.build_all().logs[CL_LIBRARIES[kernel]]):
+        if kernel + "_kernel" not in rec["function"]:
+            continue
+        key = "float32" if re.search(r"_kernelIf[LE]", rec["function"]) else "float64"
+        if kernel != "backward_sweep":
+            key += "_contact" if "Lb1E" in rec["function"] else "_free"
+        usage[key] = rec
+    resident = {}
+    for name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        if kernel == "backward_sweep":
+            resident[name] = resident_blocks_per_sm(dt, nx=CL_NX)
+        elif kernel == "knot_diff":
+            resident[name] = diff_resident_blocks_per_sm(dt, family="classical")
+        else:
+            resident[name] = rollout_resident_blocks_per_sm(dt, N_ALPHAS, family="classical")
+    spill32 = sum(v.get("spill_bytes_with_callees", 1)
+                  for k, v in usage.items() if k.startswith("float32"))
+    return {"ptxas": usage, "resident_blocks_per_sm": resident, "float32_spill_bytes": spill32,
+            "float32_builds": sum(k.startswith("float32") for k in usage)}
+
+
+def classical_golden(case):
+    """The fixture's classical case (tests/test_torch_classical.py's
+    gates) solved on the card with the three kernels."""
+    from ffmpc_tpu_torch.ocp.weights import OCPWeights
+    dtype = torch.float64
+    model = make_panda_model("plant", dtype=dtype, device="cuda")
+    q0 = np.asarray(KEYFRAMES["neutral"])
+    tau_g = gravity_torque(model, torch.as_tensor(q0, dtype=dtype, device="cuda")).cpu().numpy()
+    Ng, surface = 12, case == "classical_contact"
+    solve = make_batched_solve_fn(
+        model, OCPWeights(**GOLDEN_W), FDDPSettings(max_iters=10), flagship_trajectory(),
+        EpisodeConfig(controller="classical", horizon=Ng), q0, surface=surface,
+        dtype=dtype, device="cuda")
+    x0 = np.concatenate([q0, np.zeros(7)])
+    reset_launches()
+    res = solve(np.array([1.2 if surface else 0.3]), x0[None], np.tile(x0, (1, Ng + 1, 1)),
+                np.tile(tau_g, (1, Ng, 1)))
+    torch.cuda.synchronize()
+    counts = read_launches()
+    with np.load(Path(__file__).resolve().parent / GOLDEN_FIXTURE) as z:
+        us_ref = z[f"{case}_vector_us"]
+        cost_ref = float(z[f"{case}_vector_cost"])
+        cost_other = float(z[f"{case}_scalar_cost"])
+    du = float(np.abs(res.us[0].cpu().numpy() - us_ref).max())
+    dcost = abs(float(res.cost[0]) - cost_ref) / abs(cost_ref)
+    rec = {"phase": "classical", "case": "golden_" + case, "dtype": "float64", "N": Ng,
+           "iters": int(res.iters[0]), "alpha_hist": res.alpha_hist[0].tolist(),
+           "max_abs_du": du, "rel_dcost": dcost, "launches": counts}
+    if surface:
+        spread = abs(cost_other - cost_ref) / abs(cost_ref)
+        rec.update(fixture_rel_cost_spread=spread, gate="decisions and cost")
+        ok = (rec["iters"] == len(GOLDEN_CONTACT_ALPHAS)
+              and tuple(rec["alpha_hist"]) == GOLDEN_CONTACT_ALPHAS and dcost <= 2.0 * spread)
+    else:
+        rec["gate"] = "us atol 1e-6, cost rtol 1e-8"
+        ok = du <= 1e-6 and dcost <= 1e-8
+    ok = ok and min(counts.values()) >= rec["iters"]
+    rec["ok"] = bool(ok)
+    emit(rec)
+    return rec
+
+
+def phase_classical():
+    """The classical controller's batched solve on the classical
+    instantiations of the three kernels (backward sweep at nx = 14, the
+    derivative and rollout kernels on the classical knot family):
+    (1) each instantiation against its plain version at N=36, B=1024, on
+    seeded inputs and on the classical main path's first-iteration inputs,
+    float64 and float32, contact and free, at the gates of the augmented
+    instantiations' phases; ptxas' registers, stack and spills (no float32
+    build may spill) and the resident blocks an SM; each one's time, plain
+    time and bound at B=1 / 256 / 1024 (float32, contact);
+    (2) the golden fixture's classical_free and classical_contact cases on
+    the card with the kernels (float64, N=12);
+    (3) the main path: `make_batched_solve_fn(controller="classical",
+    horizon=36)` on the flagship weights and trajectory, the contact knot,
+    float32, 10 iterations, B=256 and 1024, the three kernels, timed (host
+    clock, the median of SOLVE_REPEATS solves), its launches read around
+    its first timed solve; at B=256 against plain mode on the same inputs
+    (PLAIN_REPEATS solve).  The classical contact solve from these warm
+    starts sits on the box QP's ties at float32 (the first iteration's
+    free sets change on half the problems under a one-ulp perturbation), so
+    decisions are gated at float64, at B=256: the kernels and plain mode
+    take the same decisions on MIN_AGREE_SOLVE of the problems; at float32
+    the kernel path stays as close to plain mode as plain float32 to plain
+    float64 (phase solve's yardstick gates), and its share of equal
+    decisions is printed.  Returns (the classical figures of each kernel,
+    the launch counts of the B=1024 solve)."""
+    failures = []
+    checks = {}
+    for kernel in ("backward_sweep", "knot_diff", "rollout"):
+        checks[kernel] = []
+        for dtype in (torch.float64, torch.float32):
+            for surface in (True, False):
+                for rec in classical_kernel_checks(kernel, dtype, surface):
+                    checks[kernel].append(rec)
+                    if not rec["ok"]:
+                        failures.append(f"{kernel}/{rec['case']}/{rec['dtype']}")
+        emit({"phase": "classical", "kernel": kernel, "checks": checks[kernel]})
+    figures = {}
+    for kernel in ("backward_sweep", "knot_diff", "rollout"):
+        res = classical_residency(kernel)
+        res["by_batch"] = {str(b): classical_timing(kernel, b) for b in (1,) + BATCHES}
+        # the error on the main path's inputs at float64, where the contact
+        # problem is resolved (the backward sweep's over the problems with
+        # the same free sets, the rollout's over the rows not diverged); at
+        # float32 the first iteration's ties make it a draw (the checks)
+        main = [r for r in checks[kernel]
+                if r["dtype"] == "float64" and r["case"] == "main_path_first_iteration_contact"]
+        res["max_abs_err"] = max(main[0].get("same_free_set_max_abs_err",
+                                             main[0]["max_abs_err"]).values())
+        res["max_abs_err_dtype"] = "float64"
+        figures[kernel] = res
+        emit({"phase": "classical", "kernel": kernel, **res})
+        if res["float32_spill_bytes"] != 0 or res["float32_builds"] == 0:
+            failures.append(f"{kernel}: float32 spill or no float32 build {res['ptxas']}")
+    for case in ("classical_free", "classical_contact"):
+        if not classical_golden(case)["ok"]:
+            failures.append("golden_" + case)
+    if failures:
+        raise RuntimeError(f"classical instantiations: {failures}")
+    return figures, classical_solves()
+
+
+def classical_solves():
+    """Phase classical's (3): the classical main path's solves; returns the
+    launch counts of the B=1024 solve."""
+    dtype = torch.float32
+    model, W, traj, _, q0 = flagship(dtype)
+    model64 = flagship(torch.float64)[0]
+    ep = EpisodeConfig(controller="classical", horizon=CL_HORIZON)
+    tau_g = gravity_torque(model, torch.as_tensor(q0, dtype=dtype, device="cuda")).cpu().numpy()
+
+    def solver(mode, iters=ITERS, dt=dtype, mdl=model):
+        return make_batched_solve_fn(
+            mdl, W, FDDPSettings(max_iters=iters, backward_mode=mode, rollout_mode=mode,
+                                 diff_mode=mode),
+            traj, ep, q0, surface=True, dtype=dt, device="cuda")
+
+    def run(mode, args, repeats, dt=dtype, mdl=model):
+        """Warm-up, then timed solves; the launch counts of the first."""
+        solver(mode, 1, dt, mdl)(*args)
+        solve = solver(mode, ITERS, dt, mdl)
+        reset_launches()
+        res, ms = timed_solves(solve, args, 1)
+        counts = read_launches()
+        ms += timed_solves(solve, args, repeats - 1)[1]
+        return res, ms, counts
+
+    rng = np.random.default_rng(0)
+    launches = {}
+    for B in BATCHES:
+        args = classical_warm_starts(B, q0, tau_g, rng)
+        res_k, ms_k, counts = run("kernel", args, SOLVE_REPEATS)
+        launches[B] = counts
+        iters_run = max(int(res_k.iters.max()), 1)
+        rec = {"phase": "classical", "case": "solve", "B": B, "N": CL_HORIZON,
+               "max_iters": ITERS, "dtype": "float32", "kernel_launches": counts,
+               "launches_a_solve": sum(counts.values()),
+               "mean_iters": float(res_k.iters.double().mean()),
+               "converged": int(res_k.converged.sum()), "diverged": int(res_k.diverged.sum()),
+               "feasible": int(res_k.feasible.sum()), "mean_cost": float(res_k.cost.mean()),
+               "kernel_mode": rate_record(B, ms_k), "min_same_decisions_share": MIN_AGREE_SOLVE}
+        res_shape = (tuple(res_k.xs.shape), tuple(res_k.us.shape))
+        if res_shape != ((B, CL_HORIZON + 1, CL_NX), (B, CL_HORIZON, NU)) or not all(
+                bool(torch.isfinite(t).all()) for t in (res_k.xs, res_k.us, res_k.cost)):
+            emit(rec)
+            raise RuntimeError(f"classical solve B={B}: shapes {res_shape} or non-finite")
+        if min(counts.values()) < iters_run:
+            emit(rec)
+            raise RuntimeError(f"classical solve B={B}: launches {counts} for {iters_run} "
+                               "iterations")
+        if B != BATCHES[0]:
+            # the plain comparisons, at the smaller batch only (each plain
+            # solve takes 20-40 s of host time)
+            emit(rec)
+            continue
+        res_p, ms_p, counts_p = run("plain", args, PLAIN_REPEATS)
+        kp = decisions_and_distance(res_k, res_p)
+        # the yardstick, plain float32 against plain float64, and the
+        # float64 gate: the kernels against plain mode at float64
+        args64 = tuple(np.asarray(a, np.float64) for a in args)
+        res_p64 = run("plain", args64, 1, torch.float64, model64)[0]
+        res_k64, _, counts64 = run("kernel", args64, 1, torch.float64, model64)
+        yard = decisions_and_distance(res_p, res_p64)
+        k64 = decisions_and_distance(res_k64, res_p64)
+        rec.update(plain_mode=rate_record(B, ms_p), kernel32_vs_plain32=kp,
+                   plain32_vs_plain64=yard, kernel64_vs_plain64=k64,
+                   kernel64_launches=counts64)
+        emit(rec)
+        if (k64["same_decisions_share"] < MIN_AGREE_SOLVE
+                or k64["same_step_share_by_iteration"][0] < MIN_AGREE_SOLVE):
+            raise RuntimeError(f"classical solve B={B}, float64: kernel and plain mode "
+                               f"disagree: {k64}")
+        if any(counts_p.values()):
+            raise RuntimeError(f"classical solve B={B}: plain mode launched kernels: {counts_p}")
+        # float32 against the yardstick (phase solve's second-tier gates)
+        if (kp["mean_leading_iterations_with_same_step"]
+                < yard["mean_leading_iterations_with_same_step"] - LEADING_SLACK
+                or kp["median_rel_dcost"] > 2.0 * yard["median_rel_dcost"] + 1e-3):
+            raise RuntimeError(f"classical solve B={B}: kernel and plain mode further apart "
+                               f"than plain float32 and float64: {kp} against {yard}")
+    return launches[BATCHES[-1]]
 
 
 def phase_stages():
@@ -2111,16 +2668,31 @@ def main():
     phase_small_reference()
     phase_golden()
     launches = phase_solve()
+    classical, classical_launches = phase_classical()
     phase_stages()
     probes = phase_probes()
     phase_plant()
     paths = {"closed_loop_240_ticks": phase_closed_loop()}
     phase_b1()
     paths["ensemble_512x100"] = phase_ensemble()
+    paths["classical_solve_1024"] = classical_launches
     for entry in kernels:
         entry["launches_by_batch"] = {str(b): n[entry["name"]] for b, n in launches.items()}
         entry["launches"] = entry["launches_by_batch"][str(BATCHES[-1])]
         entry["launches_by_path"] = {p: n[entry["name"]] for p, n in paths.items()}
+        entry["families"] = ["augmented (nx=21)", "classical (nx=14)"]
+        c = classical[entry["name"]]
+        t = c["by_batch"][str(BATCHES[-1])]
+        entry["classical"] = {
+            "source": f"ffmpc_tpu_torch/csrc/{CL_LIBRARIES[entry['name']]}.cu",
+            "replaces": entry["replaces"], "launches": classical_launches[entry["name"]],
+            "max_abs_err": c["max_abs_err"], "max_abs_err_dtype": c["max_abs_err_dtype"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+            "shape": {"B": BATCHES[-1], "N": CL_HORIZON, "nx": CL_NX, "nu": NU,
+                      "dtype": "float32"},
+            "by_batch": c["by_batch"], "resident_blocks_per_sm": c["resident_blocks_per_sm"],
+            "ptxas": c["ptxas"]}
     print(smi, flush=True)
     emit({"kernels": kernels + probes})
     emit({"ok": True, "device": {"platform": "gpu",

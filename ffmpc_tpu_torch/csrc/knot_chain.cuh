@@ -1,4 +1,4 @@
-// The augmented force-feedback knot as device code: the rigid-body chain of
+// The force-feedback and classical knots as device code: the rigid-body chain of
 // the 7-joint Panda (forward kinematics with the frame Jacobian, bias forces,
 // mass matrix with armature, unrolled 7x7 Cholesky, free dynamics and the
 // damped 1-D normal-contact KKT), the residual stack with its activations and
@@ -8,7 +8,8 @@
 // Counterpart of ffmpc_tpu/core/scalarops.py (chol, chol_solve),
 // ffmpc_tpu/core/scalar_chain.py (chain_consts, fk_chain, chain_rnea,
 // mass_matrix_chain, free_dynamics_chain, contact_dynamics_chain) and
-// ffmpc_tpu/ocp/scalar_knot.py (make_scalar_calc_augmented).  The operations
+// ffmpc_tpu/ocp/scalar_knot.py (make_scalar_calc_augmented,
+// make_scalar_calc_classical).  The operations
 // follow the port's own vector code, ffmpc_tpu_torch/core/{kinematics,
 // dynamics,spatial}.py and ocp/action.py, which is what the kernel is held
 // against: the same formulas in the same order wherever that is cheap.
@@ -42,6 +43,28 @@ namespace ffmpc {
 constexpr int kNQ = 7;    // joints
 constexpr int kNY = 21;   // augmented state y = (q, v, tau)
 constexpr int kNW = 7;    // control w (unfiltered torque)
+
+// The knot families the kernels are instantiated for.  The augmented knot
+// (force feedback) on y = (q, v, tau) with control w; the classical knot on
+// x = (q, v) with control u = tau, which is the augmented knot's inner knot:
+// its torque is the control itself, and it has no filter row and no y / w
+// terms.  The device code is written in the augmented layout: a classical
+// knot runs the derivative parts with its control staged in the torque
+// state's rows (y 14-20, w = 0) and reads its own blocks of their outputs
+// (classical_* below), and the rollout's phases through their classical
+// variants.  Its terminal knot has its own constants (kConstSets): the same
+// model, its cost table unscaled (Crocoddyl's terminal overload), where the
+// augmented terminal knot keeps the inner terms' dt scale.
+struct Augmented {
+  static constexpr bool kClassical = false;
+  static constexpr int kNX = kNY;
+  static constexpr int kConstSets = 1;
+};
+struct Classical {
+  static constexpr bool kClassical = true;
+  static constexpr int kNX = 2 * kNQ;
+  static constexpr int kConstSets = 2;  // running knots, then the terminal knot
+};
 
 // Barrier bounds at or beyond this magnitude act as no bound.
 constexpr double kBig = 1e30;
@@ -1496,6 +1519,80 @@ inline void diff_knot_serial(const KnotConstants<T>& C, const DiffArgs<T>& a, in
   for (int e = 0; e < kNW * kNW; ++e) a.Luu[k * kNW * kNW + e] = luu_entry<T>(rec, e);
 }
 
+// A classical knot's outputs in the augmented layout of the derivative
+// parts' results (a 21 x 21 row-major block: Fx's rows 0-13, and the Lxx
+// tile; the record's 21 gradient rows kRecLx): Fx (14 x 14) and Fu (14 x 7)
+// are the columns c < 14 and c >= 14 of rows 0-13, Lxx, Lxu and Luu the
+// (x, x), (x, u) and (u, u) blocks of the Gauss-Newton Hessian over (x, u),
+// Lx and Lu the gradient's rows 0-13 and 14-20.  Entry e of the classical
+// array, by its flat index, in the block.
+FFMPC_HD int classical_xx(int e) { return (e / Classical::kNX) * kNY + e % Classical::kNX; }
+FFMPC_HD int classical_xu(int e) { return (e / kNW) * kNY + Classical::kNX + e % kNW; }
+FFMPC_HD int classical_uu(int e) {
+  return (Classical::kNX + e / kNW) * kNY + Classical::kNX + e % kNW;
+}
+
+// A classical terminal knot's record after its residual stages ran on the
+// running knots' constants: every classical term is dt-scaled on a running
+// knot and unscaled on the terminal knot (Crocoddyl's terminal overload), so
+// its cost and the groups' and identity terms' gradients and Hessians are
+// the running table's divided by dt.
+template <typename T, typename R>
+FFMPC_HD void classical_terminal_unscale(const KnotConstants<T>& C, R rec) {
+  rec[kRecCost] = rec[kRecCost] / C.dt;
+  for (int i = kRecGOri; i < kRecLive; ++i) rec[i] = rec[i] / C.dt;
+}
+
+// diff_knot_serial for a classical knot: its state (14) and control staged
+// as the augmented parts read them (the control in the torque state's rows,
+// w = 0, 0 at the terminal knot), the parts run on the running knots'
+// constants C (the terminal knot's record then unscaled), and its blocks of
+// the results written to its outputs (DiffArgs at nx = 14).  Where
+// `columns` is given, only those columns run, and Fx / Fu entries of the
+// others come out NaN.
+template <typename T, bool SURFACE>
+inline void diff_knot_serial_classical(const KnotConstants<T>& Ck, const DiffArgs<T>& a, int b,
+                                       int t, const int* columns, int n) {
+  constexpr int nx = Classical::kNX;
+  T buf[kRecSize] = {}, inputs[kInSize], fx[kNY * kNY], lxx[kNY * kNY];
+  const KnotRecord<T, 1> rec{buf}, in{inputs};
+  const bool terminal = t == a.N;
+  const size_t k = (size_t)b * a.N + t;
+  const RefView<T> ref{terminal ? a.ref_T : a.ref, terminal ? (size_t)b : k};
+  for (int i = 0; i < nx; ++i) in[kInY + i] = a.xs[((size_t)b * (a.N + 1) + t) * nx + i];
+  for (int j = 0; j < kNW; ++j) {
+    in[kInY + nx + j] = terminal ? T(0) : a.us[k * kNW + j];
+    in[kInW + j] = T(0);
+  }
+  for (int v = 0; v < 57; ++v) in[kInRef + v] = ref.at(v);
+  for (int e = 0; e < kNY * kNY; ++e) fx[e] = T(NAN);
+  diff_primal<T, SURFACE>(Ck, in, terminal, rec);
+  if (terminal) classical_terminal_unscale<T>(Ck, rec);
+  if (!terminal)
+    for (int i = 0; i < nx; ++i) a.xnext[k * nx + i] = rec[kRecXnext + i];
+  for (int i = 0; i < (columns ? n : kNY); ++i)
+    diff_column<T, SURFACE>(Ck, rec, columns ? columns[i] : i, terminal ? nullptr : fx);
+  for (int c = 0; c < kNY; ++c) diff_lxx_column<T, SURFACE>(rec, c, lxx);
+  if (terminal) {
+    a.cost_T[b] = rec[kRecCost];
+    for (int e = 0; e < nx * nx; ++e) a.LxxT[(size_t)b * nx * nx + e] = lxx[classical_xx(e)];
+    for (int c = 0; c < nx; ++c) a.LxT[(size_t)b * nx + c] = rec[kRecLx + c];
+    return;
+  }
+  a.cost[k] = rec[kRecCost];
+  for (int e = 0; e < nx * nx; ++e) {
+    a.Fx[k * nx * nx + e] = fx[classical_xx(e)];
+    a.Lxx[k * nx * nx + e] = lxx[classical_xx(e)];
+  }
+  for (int e = 0; e < nx * kNW; ++e) {
+    a.Fu[k * nx * kNW + e] = fx[classical_xu(e)];
+    a.Lxu[k * nx * kNW + e] = lxx[classical_xu(e)];
+  }
+  for (int e = 0; e < kNW * kNW; ++e) a.Luu[k * kNW * kNW + e] = lxx[classical_uu(e)];
+  for (int c = 0; c < nx; ++c) a.Lx[k * nx + c] = rec[kRecLx + c];
+  for (int j = 0; j < kNW; ++j) a.Lu[k * kNW + j] = rec[kRecLx + nx + j];
+}
+
 // ---------------------------------------------------------------------------
 // the line-search rollout on a group of 8 lanes (solver/fddp.py forward,
 // ocp/action.py calc / term_calc)
@@ -1564,6 +1661,39 @@ FFMPC_HD unsigned plan_descriptor(int k) {
   }
   return (unsigned)id | (unsigned)w << 5 | (unsigned)col << 13 | (unsigned)state_rows << 21 |
          (unsigned)next << 22 | (unsigned)running << 23;
+}
+
+// The classical knot's plan in the same slots: its 14 state columns (x_nom,
+// the gap fs_{t+1}, the gap products w_t) and the 14 columns of each gain
+// row in the first 14 of the slots' 21.  The other 7 of each (the augmented
+// knot's torque columns, which no classical phase reads) copy a value of
+// the same row, so every slot keeps a source.  Controls, feed-forwards and
+// references lie where the augmented plan has them.
+FFMPC_HD unsigned plan_descriptor_classical(int k) {
+  constexpr int nx = Classical::kNX;
+  const auto fold = [](int c) { return c < nx ? c : c - nx; };
+  int id, w, col, state_rows = 1, next = 0, running = 0;
+  if (k < kPlUnom) {
+    id = kSrcXs, w = nx, col = fold(k - kPlXnom);
+  } else if (k >= kPlK && k < kPlKff) {
+    const int c = k - kPlK;
+    id = kSrcK, w = kNW * nx, col = (c / kNY) * nx + fold(c % kNY), state_rows = 0, running = 1;
+  } else if (k >= kPlFs && k < kPlRef) {
+    id = kSrcFs, w = nx, col = fold(k - kPlFs), next = 1, running = 1;
+  } else if (k >= kPlW) {
+    id = kSrcW, w = nx, col = fold(k - kPlW);
+  } else {
+    return plan_descriptor(k);  // controls, feed-forwards, references
+  }
+  return (unsigned)id | (unsigned)w << 5 | (unsigned)col << 13 | (unsigned)state_rows << 21 |
+         (unsigned)next << 22 | (unsigned)running << 23;
+}
+
+// The plan descriptor of slot k for family F.
+template <typename F>
+FFMPC_HD unsigned family_plan_descriptor(int k) {
+  if constexpr (F::kClassical) return plan_descriptor_classical(k);
+  else return plan_descriptor(k);
 }
 
 // The source arrays of RolloutArgs, in SourceArray's order, into src.
@@ -1782,6 +1912,42 @@ FFMPC_HD void group_state(const KnotConstants<T>& C, const T* plan, const T* row
   }
 }
 
+// Phase 0 of a classical knot, lane j < 7: group_state on x = (q, v): the
+// state row into xs_try (14 wide), dx, the gap sum's terms, cos and sin,
+// joint j's transform, and the state's cost rows.  Its torque is the
+// control, which the policy phase forms.
+template <typename T>
+FFMPC_HD void group_state_classical(const KnotConstants<T>& C, const T* plan, const T* rows, T* g,
+                                    LaneState<T>& ls, int j, T* xs_row) {
+  const T* ref = plan + kPlRef;
+  const T dq = ls.q - plan[kPlXnom + j];
+  const T dv = ls.v - plan[kPlXnom + 7 + j];
+  ls.dv = (ls.dv + plan[kPlW + j] * dq) + plan[kPlW + 7 + j] * dv;
+  const T r[kLrTauReg] = {ls.q - ref[6 + j], ls.v - ref[13 + j], ls.q, ls.v,
+                          ls.q - C.q_soft_ref[j], ls.v - C.q_soft_ref[7 + j]};
+  T cost = T(0);
+  for (int k = 0; k < kLrTauReg; ++k) cost = cost + row_cost<T>(rows + k * kRowRecord, r[k]);
+  ls.cost = ls.cost + cost;
+  T cq, sq;
+  sincos_(ls.q, sq, cq);
+  T Rj[3][3];
+  joint_rot<T, T>(C, j, cq, sq, Rj);
+  const T jp[3] = {C.j_pos[j][0], C.j_pos[j][1], C.j_pos[j][2]};
+  for (int r = 0; r < 3; ++r) {
+    for (int c = 0; c < 3; ++c) g[kGScanA + j * 12 + r * 3 + c] = Rj[r][c];
+    g[kGScanA + j * 12 + 9 + r] = jp[r];
+  }
+  g[kGDx + j] = dq;
+  g[kGDx + 7 + j] = dv;
+  g[kGV + j] = ls.v;
+  g[kGCq + j] = cq;
+  g[kGSq + j] = sq;
+  if (xs_row) {
+    xs_row[j] = ls.q;
+    xs_row[7 + j] = ls.v;
+  }
+}
+
 // Phases 1 and 2, lane j < 7: one level of the frames' prefix products
 // (Hillis-Steele): frame j <- frame j - d times frame j, from region src
 // into region dst.
@@ -1818,6 +1984,32 @@ FFMPC_HD void group_policy(const KnotConstants<T>& C, const T* plan, const T* ro
   ls.u = u;
   ls.cost = ls.cost + (row_cost<T>(rows + kLrWReg * kRowRecord, u) +
                        row_cost<T>(rows + kLrWSoft * kRowRecord, u));
+}
+
+// Phase 1 of a classical knot, lane j < 7: u_j = clip(u_nom_j - alpha kff_j
+// - K_j dx) over the 14 state columns into us_try (0 at the terminal knot),
+// as the torque the dynamics take, and its cost rows: tau_reg on
+// u_j - tau_ref_j and tau_soft_limits on u_j (running knots only).
+template <typename T>
+FFMPC_HD void group_policy_classical(const KnotConstants<T>& C, const T* plan, const T* rows,
+                                     T* g, LaneState<T>& ls, int j, bool terminal, T alpha,
+                                     T* us_row) {
+  T u = T(0);
+  if (!terminal) {
+    const T* Kj = plan + kPlK + j * kNY;
+    T k0 = T(0), k1 = T(0);
+    for (int i = 0; i < kNQ; ++i) {
+      k0 = k0 + Kj[i] * g[kGDx + i];
+      k1 = k1 + Kj[7 + i] * g[kGDx + 7 + i];
+    }
+    u = clamp_nan<T>((plan[kPlUnom + j] - alpha * plan[kPlKff + j]) - (k0 + k1), C.u_lb[j],
+                     C.u_ub[j]);
+    if (us_row) us_row[j] = u;
+  }
+  ls.u = u;
+  g[kGTau + j] = u;
+  ls.cost = ls.cost + (row_cost<T>(rows + kLrTauReg * kRowRecord, u - plan[kPlRef + 20 + j]) +
+                       row_cost<T>(rows + kLrTauSoft * kRowRecord, u));
 }
 
 // Phase 3, lane j < 7: the prefix products' last level, then the base frame:
@@ -2138,6 +2330,17 @@ FFMPC_HD void group_advance(const KnotConstants<T>& C, const T* plan, const T* g
   ls.tau = tn + gap_scale * plan[kPlFs + 14 + j];
 }
 
+// Phase 9 of a classical knot, lane j < 7 (running knots): semi-implicit
+// Euler on (q_j, v_j) and the gap-keeping update.
+template <typename T>
+FFMPC_HD void group_advance_classical(const KnotConstants<T>& C, const T* plan, const T* g,
+                                      LaneState<T>& ls, int j, T gap_scale) {
+  const T vn = ls.v + C.dt * g[kGAcc + j];
+  const T qn = ls.q + C.dt * vn;
+  ls.q = qn + gap_scale * plan[kPlFs + j];
+  ls.v = vn + gap_scale * plan[kPlFs + 7 + j];
+}
+
 // Phase 8, lane 6 (beside lane 7's contact solve): the orientation error's
 // term, log3 of R_des^T ee_R.
 template <typename T>
@@ -2172,21 +2375,33 @@ FFMPC_HD void group_tool_rows(const KnotConstants<T>& C, const T* plan, const T*
   cost = cost + sum;
 }
 
-// Phase p of one knot on one lane of a group.  xs_row / us_row: the
-// rollout's output rows at this knot (null where nothing is written).
-template <typename T, bool SURFACE>
-FFMPC_HD void group_phase(int p, const KnotConstants<T>& C, const T* plan, const T* table,
-                          T* g, LaneState<T>& ls, int lane, bool terminal, T alpha,
-                          T gap_scale, T* xs_row, T* us_row) {
+// Phase p of one knot of family F on one lane of a group.  xs_row / us_row:
+// the rollout's output rows at this knot (null where nothing is written).
+// C_term: the terminal knot's constants, which differ from C in the cost
+// scales only (a classical knot's, kConstSets; the table's terminal rows are
+// made from them), read here by the orientation term of a classical
+// terminal knot alone.
+template <typename T, bool SURFACE, typename F = Augmented>
+FFMPC_HD void group_phase(int p, const KnotConstants<T>& C, const KnotConstants<T>& C_term,
+                          const T* plan, const T* table, T* g, LaneState<T>& ls, int lane,
+                          bool terminal, T alpha, T gap_scale, T* xs_row, T* us_row) {
   const bool joint = lane < kNQ;
   const T* rows = table + ((terminal ? kNQ : 0) + (joint ? lane : 0)) * kLaneRowValues;
   switch (p) {
     case 0:
-      if (joint) group_state<T>(C, plan, rows, g, ls, lane, xs_row);
+      if (joint) {
+        if constexpr (F::kClassical)
+          group_state_classical<T>(C, plan, rows, g, ls, lane, xs_row);
+        else
+          group_state<T>(C, plan, rows, g, ls, lane, xs_row);
+      }
       break;
     case 1:
       if (joint) {
-        group_policy<T>(C, plan, rows, g, ls, lane, terminal, alpha, us_row);
+        if constexpr (F::kClassical)
+          group_policy_classical<T>(C, plan, rows, g, ls, lane, terminal, alpha, us_row);
+        else
+          group_policy<T>(C, plan, rows, g, ls, lane, terminal, alpha, us_row);
         group_scan<T>(g, lane, 1, kGScanA, kGScanB);
       }
       break;
@@ -2217,13 +2432,22 @@ FFMPC_HD void group_phase(int p, const KnotConstants<T>& C, const T* plan, const
     case 8:
       if (!joint)
         group_contact<T, SURFACE>(C, plan, g);
-      else if (lane == kNQ - 1)
-        group_orientation<T>(C, plan, g, terminal, ls.cost);
+      else if (lane == kNQ - 1) {
+        if constexpr (F::kClassical)
+          group_orientation<T>(terminal ? C_term : C, plan, g, terminal, ls.cost);
+        else
+          group_orientation<T>(C, plan, g, terminal, ls.cost);
+      }
       break;
     default:
       if (joint) {
         group_tool_rows<T>(C, plan, rows, g, lane, ls.cost);
-        if (!terminal) group_advance<T>(C, plan, g, ls, lane, gap_scale);
+        if (!terminal) {
+          if constexpr (F::kClassical)
+            group_advance_classical<T>(C, plan, g, ls, lane, gap_scale);
+          else
+            group_advance<T>(C, plan, g, ls, lane, gap_scale);
+        }
       }
   }
 }
@@ -2271,18 +2495,21 @@ FFMPC_HD T step_length(int ai) {
 // Problem b at step length 2^-ai on one host thread: the group's 8 lanes
 // run each phase in turn, as the kernel's group does (its barrier between
 // phases); the lanes' shares are summed in lane order at the end.  What the
-// tests' g++ build of this header runs.
-template <typename T, bool SURFACE>
-inline void rollout_group_serial(const KnotConstants<T>& C, const RolloutArgs<T>& a, int b,
+// tests' g++ build of this header runs.  C: F::kConstSets constants (a
+// classical knot's running, then terminal).
+template <typename T, bool SURFACE, typename F = Augmented>
+inline void rollout_group_serial(const KnotConstants<T>* C, const RolloutArgs<T>& a, int b,
                                  int ai) {
+  constexpr int nx = F::kNX;
+  const KnotConstants<T>& C_T = C[F::kConstSets - 1];
   T plan[kPlSize], g[kGSize] = {}, table[kRowTableSize];
   LaneState<T> ls[8] = {};
   for (int k = 0; k < 2 * kNQ; ++k)
-    lane_row_table<T>(C, k % kNQ, k >= kNQ, table + k * kLaneRowValues);
+    lane_row_table<T>(k >= kNQ ? C_T : C[0], k % kNQ, k >= kNQ, table + k * kLaneRowValues);
   for (int j = 0; j < kNQ; ++j) {
-    ls[j].q = a.x0[(size_t)b * kNY + j];
-    ls[j].v = a.x0[(size_t)b * kNY + 7 + j];
-    ls[j].tau = a.x0[(size_t)b * kNY + 14 + j];
+    ls[j].q = a.x0[(size_t)b * nx + j];
+    ls[j].v = a.x0[(size_t)b * nx + 7 + j];
+    if constexpr (!F::kClassical) ls[j].tau = a.x0[(size_t)b * nx + 14 + j];
   }
   const T alpha = step_length<T>(ai);
   const T gap_scale = a.feasible[b] ? T(0) : alpha - T(1);
@@ -2292,15 +2519,15 @@ inline void rollout_group_serial(const KnotConstants<T>& C, const RolloutArgs<T>
   for (int t = 0; t <= a.N; ++t) {
     const bool terminal = t == a.N;
     for (int k = 0; k < kPlSize; ++k) {
-      const T* v = plan_source<T>(src, plan_descriptor(k), (size_t)b, t, a.N);
+      const T* v = plan_source<T>(src, family_plan_descriptor<F>(k), (size_t)b, t, a.N);
       plan[k] = v ? *v : T(0);
     }
-    T* xs_row = a.xs_try + (row * (a.N + 1) + t) * kNY;
+    T* xs_row = a.xs_try + (row * (a.N + 1) + t) * nx;
     T* us_row = terminal ? nullptr : a.us_try + (row * a.N + t) * kNW;
     for (int p = 0; p < kGroupPhases; ++p)
       for (int lane = 0; lane < 8; ++lane)
-        group_phase<T, SURFACE>(p, C, plan, table, g, ls[lane], lane, terminal, alpha,
-                                gap_scale, xs_row, us_row);
+        group_phase<T, SURFACE, F>(p, C[0], C_T, plan, table, g, ls[lane], lane, terminal,
+                                   alpha, gap_scale, xs_row, us_row);
   }
   T cost = T(0), dv = T(0);
   for (int lane = 0; lane < 8; ++lane) {
@@ -2309,6 +2536,14 @@ inline void rollout_group_serial(const KnotConstants<T>& C, const RolloutArgs<T>
   }
   a.cost_try[row] = cost;
   a.dv_try[row] = dv;
+}
+
+// The same for a family with one set of constants (the augmented knot).
+template <typename T, bool SURFACE, typename F = Augmented>
+inline void rollout_group_serial(const KnotConstants<T>& C, const RolloutArgs<T>& a, int b,
+                                 int ai) {
+  static_assert(F::kConstSets == 1, "this family's terminal knot has constants of its own");
+  rollout_group_serial<T, SURFACE, F>(&C, a, b, ai);
 }
 
 }  // namespace ffmpc

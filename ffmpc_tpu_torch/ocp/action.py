@@ -5,18 +5,22 @@ batched natively: every knot function takes tensors with arbitrary leading
 batch dims (a single knot slice of ``ProblemRefs``, states (..., nx),
 controls (..., nu)).
 
-Ported so far: the augmented LPF knot (force-feedback): state y=(q,v,tau) in
-R^21, control w in R^7, with tau+ = alpha*tau + (1-alpha)*w and outer y/w
-regularization costs, on top of the classical inner knot (semi-implicit Euler
-over free or contact forward dynamics with the full cost stack), with the
-1-D normal contact (``contact_model="normal_1d"``); any other contact model
-raises.
+Ported so far, both with the 1-D normal contact (``contact_model=
+"normal_1d"``; any other contact model raises):
+- the classical knot (``make_classical_knot``): state x=(q,v) in R^14,
+  control u=tau in R^7, semi-implicit Euler over free or contact forward
+  dynamics with the full cost stack;
+- the augmented LPF knot (force-feedback, ``make_augmented_knot``): state
+  y=(q,v,tau) in R^21, control w in R^7, with tau+ = alpha*tau + (1-alpha)*w
+  and outer y/w regularization costs, on top of the classical inner knot.
 
 Derivatives: dynamics Jacobians come from the KKT implicit-function theorem
 (``core.dynamics``); cost Hessians are assembled Gauss-Newton style
 (activation grad / diagonal Hessian; residual second derivatives dropped).
 Cost scaling: running knot cost is dt * sum(inner costs); the augmented outer
-costs are discrete-level (never dt-scaled).
+costs are discrete-level (never dt-scaled); the classical terminal knot's
+cost is unscaled (Crocoddyl's terminal overload), the augmented one keeps
+the inner dt scale.
 """
 
 from __future__ import annotations
@@ -77,6 +81,8 @@ class KnotModel(NamedTuple):
     model: Optional[PandaModel] = None
     W: Optional[OCPWeights] = None
     surface: Optional[bool] = None
+    # "classical" or "augmented": the kernels' wrappers dispatch on it
+    family: Optional[str] = None
 
 
 # ---------------------------------------------------------------------------
@@ -360,6 +366,56 @@ def _classical_analytic(model: PandaModel, W: OCPWeights, surface: bool,
 
 
 # ---------------------------------------------------------------------------
+# classical knot
+# ---------------------------------------------------------------------------
+
+def _check_contact_model(W: OCPWeights):
+    if W.contact_model != "normal_1d":
+        raise ValueError(
+            f"contact_model {W.contact_model!r}: only the normal_1d contact "
+            "is ported")
+
+
+def make_classical_knot(model: PandaModel, W: OCPWeights,
+                        surface: bool) -> KnotModel:
+    """Classical action model on x=(q,v), control u=tau: semi-implicit Euler
+    over the free or contact forward dynamics, the spec's costs scaled by dt
+    on running knots; the terminal knot takes u = 0 and its terms unscaled.
+    Device and dtype follow ``model``'s tensors and the inputs."""
+    _check_contact_model(W)
+    spec = _make_spec(model, W, surface)
+    nx, nu = 14, 7
+    dt = float(W.dt_ocp)
+
+    def calc(ref, x, u):
+        xnext, res = _classical_raw(model, W, surface, False, ref, x, u)
+        return xnext, _assemble_cost(spec, res, dt, False)
+
+    def diff(ref, x, u):
+        xnext, res, Jx, Ju, Fx, Fu = _classical_analytic(
+            model, W, surface, False, ref, x, u)
+        cost, Lx, Lu, Lxx, Lxu, Luu = _assemble_gn(
+            spec, res, Jx, Ju, dt, False, nx, nu, x)
+        return KnotDeriv(xnext, cost, Fx, Fu, Lx, Lu, Lxx, Lxu, Luu)
+
+    def term_calc(ref, x):
+        u0 = torch.zeros_like(x[..., :nu])
+        _, res = _classical_raw(model, W, surface, True, ref, x, u0)
+        return _assemble_cost(spec, res, 1.0, True)
+
+    def term_diff(ref, x):
+        u0 = torch.zeros_like(x[..., :nu])
+        _, res, Jx, _, _, _ = _classical_analytic(model, W, surface, True, ref, x, u0)
+        cost, Lx, _, Lxx, _, _ = _assemble_gn(
+            spec, res, Jx, None, 1.0, True, nx, nu, x)
+        return cost, Lx, Lxx
+
+    lim = tuple(float(t) for t in W.tau_limits)
+    return KnotModel(calc, diff, term_calc, term_diff, nx, nu,
+                     tuple(-t for t in lim), lim, model, W, surface, "classical")
+
+
+# ---------------------------------------------------------------------------
 # augmented LPF knot (force-feedback)
 # ---------------------------------------------------------------------------
 
@@ -404,10 +460,7 @@ def make_augmented_knot(model: PandaModel, W: OCPWeights,
     (dt-scaled) + discrete-level y-reg, w-reg, w-soft-limit terms.
     Device and dtype follow ``model``'s tensors and the inputs.
     """
-    if W.contact_model != "normal_1d":
-        raise ValueError(
-            f"contact_model {W.contact_model!r}: only the normal_1d contact "
-            "is ported")
+    _check_contact_model(W)
     full_spec, _dropped = augmented_spec(model, W, surface)
 
     nx, nu, nx_mb = 21, 7, 14
@@ -507,4 +560,4 @@ def make_augmented_knot(model: PandaModel, W: OCPWeights,
 
     lim = tuple(float(t) for t in W.tau_limits)
     return KnotModel(calc, diff, term_calc, term_diff, nx, nu,
-                     tuple(-t for t in lim), lim, model, W, surface)
+                     tuple(-t for t in lim), lim, model, W, surface, "augmented")

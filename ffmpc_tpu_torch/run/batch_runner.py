@@ -1,12 +1,14 @@
 """Closed-loop MPC episodes and batched warm-started BoxFDDP solves.
 
-PyTorch counterpart of ``ffmpc_tpu/run/batch_runner.py`` for the
-force-feedback controller: ``make_episode_fn`` (the receding-horizon loop:
-problem construction, warm-started BoxFDDP solve on the three kernels, the
-Eq. 14 interpolated policy with the inverse actuation map, the divergence
-guard and torque clamp, and the 1 kHz plant substeps, for a batch of E
-episodes at once) and ``make_batched_solve_fn`` (B independent solves of the
-full-horizon problem).
+PyTorch counterpart of ``ffmpc_tpu/run/batch_runner.py``:
+``make_episode_fn`` for the force-feedback controller (the receding-horizon
+loop: problem construction, warm-started BoxFDDP solve on the three kernels,
+the Eq. 14 interpolated policy with the inverse actuation map, the
+divergence guard and torque clamp, and the 1 kHz plant substeps, for a batch
+of E episodes at once) and ``make_batched_solve_fn`` for both controllers
+(B independent solves of the full-horizon problem: the force-feedback
+controller's augmented knot, nx = 21, or the classical controller's knot,
+nx = 14).
 
 Where the JAX package scans ticks and vmaps episodes, this module loops over
 ticks in Python and carries the episode batch as a leading dimension.  Every
@@ -28,7 +30,7 @@ import torch
 from .._device import resolve_device
 from ..core.panda import PandaModel
 from ..core.dynamics import gravity_torque
-from ..ocp.action import make_augmented_knot
+from ..ocp.action import make_augmented_knot, make_classical_knot
 from ..ocp.problem import build_problem_refs
 from ..ocp.weights import OCPWeights
 from ..solver.fddp import solve as fddp_solve, FDDPSettings
@@ -39,7 +41,9 @@ from ..mpc.controllers import make_vertical_down_R
 
 @dataclass(frozen=True)
 class EpisodeConfig:
-    controller: str = "force_feedback"   # the only knot family ported
+    # "force_feedback" (the augmented knot) or "classical" (batched solves
+    # only: the classical closed loop is not ported yet)
+    controller: str = "force_feedback"
     horizon: int = 36
     dt_mpc: float = 0.005
     plant_timestep: float = 0.001
@@ -67,11 +71,17 @@ class DeviceUncertainty:
     seed: int = 0
 
 
-def _check_controller(ep: EpisodeConfig):
-    if ep.controller != "force_feedback":
+_KNOT_OF = {"force_feedback": make_augmented_knot, "classical": make_classical_knot}
+
+
+def _check_controller(ep: EpisodeConfig, episode: bool = False):
+    if episode and ep.controller != "force_feedback":
         raise ValueError(
-            f"controller {ep.controller!r}: only the force_feedback "
-            "(augmented) knot family is ported")
+            f"controller {ep.controller!r}: the closed loop runs the force_feedback "
+            "(augmented) knot family only; the classical closed loop and ensemble are "
+            "the next slice of the port (batched classical solves: make_batched_solve_fn)")
+    if ep.controller not in _KNOT_OF:
+        raise ValueError(f"controller {ep.controller!r}: expected one of {sorted(_KNOT_OF)}")
 
 
 def _check_model(model: PandaModel, dev: torch.device, dtype):
@@ -111,7 +121,7 @@ def make_episode_fn(model: PandaModel, W: OCPWeights, settings: FDDPSettings,
     overrides ``table`` for the call.  ``model`` and ``table`` must live on
     ``device`` in ``dtype``."""
     dev = resolve_device(device)
-    _check_controller(ep)
+    _check_controller(ep, episode=True)
     _check_model(model, dev, dtype)
     N = ep.horizon
     kw = dict(dtype=dtype, device=dev)
@@ -248,14 +258,17 @@ def make_batched_solve_fn(model: PandaModel, W: OCPWeights,
     """B independent warm-started BoxFDDP solves of the full-horizon problem.
 
     Returns ``batched(ts (B,), x0s (B, nx), xs_w (B, N+1, nx),
-    us_w (B, N, nu)) -> FDDPResult`` with batch-leading fields.  Inputs may
-    be numpy arrays or tensors; they are moved to ``device`` / ``dtype``
+    us_w (B, N, nu)) -> FDDPResult`` with batch-leading fields: nx = 21
+    for ``ep.controller == "force_feedback"`` (the augmented knot, its state
+    reference the problem's first state), nx = 14 for "classical".  Inputs
+    may be numpy arrays or tensors; they are moved to ``device`` / ``dtype``
     (``model`` must already live there)."""
     dev = resolve_device(device)
     _check_controller(ep)
     _check_model(model, dev, dtype)
     N = ep.horizon
-    knot = make_augmented_knot(model, W, surface=surface)
+    is_ff = ep.controller == "force_feedback"
+    knot = _KNOT_OF[ep.controller](model, W, surface=surface)
     R_des = torch.as_tensor(make_vertical_down_R(), dtype=dtype, device=dev)
     q_nom = torch.as_tensor(np.asarray(q_nom), dtype=dtype, device=dev)
     x_reg_nom = torch.cat([q_nom, torch.zeros(7, dtype=dtype, device=dev)])
@@ -265,8 +278,8 @@ def make_batched_solve_fn(model: PandaModel, W: OCPWeights,
                                for a in (ts, x0s, xs_w, us_w))
         tau_refs = gravity_torque(model, x0s[:, :7])
         refs_run, ref_T = build_problem_refs(
-            traj, ts, N, W.dt_ocp, x_reg_nom, tau_refs, R_des, y_ref=x0s,
-            dtype=dtype, device=dev)
+            traj, ts, N, W.dt_ocp, x_reg_nom, tau_refs, R_des,
+            y_ref=(x0s if is_ff else None), dtype=dtype, device=dev)
         return fddp_solve(knot, refs_run, ref_T, x0s, xs_w, us_w, settings)
 
     return batched

@@ -12,10 +12,12 @@ gap rows pre-scaled by the infeasibility weight:
     outputs  K (B,N,nu,nx)  kff (B,N,nu)  qu2 (B,)  dg (B,)  dq (B,)
              bad (B,) bool  w_all (B,N+1,nx)  with w_all[t] = Vxx[t] @ fs_scaled[t]
 
-``backward_box`` launches the hand-written kernel ``csrc/backward_sweep.cu``
-for CUDA tensors (or raises) and uses ``backward_box_reference`` only for
-CPU tensors.  ``backward_box_reference`` is a Python loop over the knots of
-batched tensor ops: it is what the kernel is held against, and what
+``backward_box`` launches the hand-written kernel ``csrc/backward_sweep.cuh``
+(built for nx = 21 in ``csrc/backward_sweep.cu`` and for nx = 14 in
+``csrc/backward_sweep_nx14.cu``, nu = 7) for CUDA tensors (or raises) and
+uses ``backward_box_reference`` only for CPU tensors.
+``backward_box_reference`` is a Python loop over the knots of batched tensor
+ops: it is what the kernel is held against, and what
 ``backward_mode="plain"`` runs.
 """
 
@@ -29,7 +31,9 @@ from ..core.smallchol import matvec as _mv
 from .boxqp import boxqp, _masked_solve
 from ._cuda_build import bind, launch, load_library
 
-KERNEL_NX, KERNEL_NU = 21, 7      # the shapes the kernel is instantiated for
+# the library built for each state width (csrc/<stem>.cu; C functions ffmpc_<stem>_*)
+_LIBRARY = {21: "backward_sweep", 14: "backward_sweep_nx14"}
+KERNEL_NX, KERNEL_NU = tuple(sorted(_LIBRARY)), 7   # the shapes the kernel is built for
 
 _ARG_NAMES = ("Fx", "Fu", "Lx", "Lu", "Lxx", "Lxu", "Luu", "fs_scaled", "LxT",
               "LxxT", "lb", "ub", "xreg", "ureg")
@@ -121,16 +125,17 @@ _ARGTYPES = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 3 + [ctypes.c_double,
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def _kernel_fn(dtype):
-    return bind(load_library("backward_sweep"), f"ffmpc_backward_sweep_{_SUFFIX[dtype]}",
-                _ARGTYPES)
+def _kernel_fn(dtype, nx=21):
+    stem = _LIBRARY[nx]
+    return bind(load_library(stem), f"ffmpc_{stem}_{_SUFFIX[dtype]}", _ARGTYPES)
 
 
-def resident_blocks_per_sm(dtype=torch.float32) -> int:
-    """Blocks of the kernel that one SM holds at once, as launched
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs a card."""
-    fn = bind(load_library("backward_sweep"),
-              f"ffmpc_backward_sweep_occupancy_{_SUFFIX[dtype]}",
+def resident_blocks_per_sm(dtype=torch.float32, nx: int = 21) -> int:
+    """Blocks of the kernel (state width ``nx``) that one SM holds at once,
+    as launched (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs a
+    card."""
+    stem = _LIBRARY[nx]
+    fn = bind(load_library(stem), f"ffmpc_{stem}_occupancy_{_SUFFIX[dtype]}",
               [ctypes.POINTER(ctypes.c_int)])
     n = ctypes.c_int(0)
     err = fn(ctypes.byref(n))
@@ -152,9 +157,9 @@ def backward_box(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, fs_scaled, LxT, LxxT, lb, ub,
         return backward_box_reference(*args, boxqp_iters=boxqp_iters,
                                       kgain_reg=kgain_reg)
     B, N, nx, nu = _check_args(args)
-    if (nx, nu) != (KERNEL_NX, KERNEL_NU):
+    if nx not in KERNEL_NX or nu != KERNEL_NU:
         raise ValueError(
-            f"backward_box: the kernel is built for nx={KERNEL_NX}, "
+            f"backward_box: the kernel is built for nx in {KERNEL_NX}, "
             f"nu={KERNEL_NU}; got nx={nx}, nu={nu}")
     if Fx.dtype not in _SUFFIX:
         raise ValueError(f"backward_box: unsupported dtype {Fx.dtype}")
@@ -176,7 +181,7 @@ def backward_box(Fx, Fu, Lx, Lu, Lxx, Lxu, Luu, fs_scaled, LxT, LxxT, lb, ub,
     w_all = torch.empty(B, N + 1, nx, dtype=dtype, device=device)
     outs = (K, kff, qu2, dg, dq, bad, w_all)
 
-    launch("backward_sweep", _kernel_fn(dtype), device,
+    launch("backward_sweep", _kernel_fn(dtype, nx), device,
            *(a.data_ptr() for a in args), *(o.data_ptr() for o in outs),
            B, N, int(boxqp_iters), float(kgain_reg))
     backward_box.launches += 1

@@ -9,9 +9,11 @@ running knots and of its terminal knot:
     outputs  KnotDerivs(run=KnotDeriv with leading dims (B,N),
                         cost_T (B,), LxT (B,nx), LxxT (B,nx,nx))
 
-``diff_all`` launches the hand-written kernel ``csrc/knot_diff.cu`` (device
-code ``csrc/knot_chain.cuh::diff_primal``, ``diff_column`` and
-``diff_lxx_column``) for CUDA tensors, or raises, and
+``diff_all`` launches the hand-written kernel ``csrc/knot_diff.cu`` (the
+augmented knot, nx = 21) or ``csrc/knot_diff_classical.cu`` (the classical
+knot, nx = 14), both ``csrc/knot_diff.cuh`` with device code
+``csrc/knot_chain.cuh::diff_primal``, ``diff_column`` and
+``diff_lxx_column``, for CUDA tensors, or raises, and
 uses ``diff_reference`` only for CPU tensors.  ``diff_reference`` is the
 knot's own ``diff`` over the (B, N) running knots and ``term_diff`` over the
 B terminal ones: what the kernel is held against, and what
@@ -29,7 +31,8 @@ import torch
 from ..ocp.action import KnotDeriv, KnotModel
 from ..ocp.weights import ProblemRefs
 from ._cuda_build import bind, launch, load_library
-from .rollout_cuda import KERNEL_NU, KERNEL_NX, N_CONSTS, check_refs
+from .rollout_cuda import (FAMILY_NX, KERNEL_NU, check_refs, consts_len, family_of,
+                           kernel_library, library_stem)
 
 
 class KnotDerivs(NamedTuple):
@@ -67,28 +70,20 @@ KNOTS_PER_BLOCK = 32   # csrc/knot_diff.cu: a block's knots, running or terminal
 # B, N, surface, stream
 ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-_consts_len_checked = set()
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def _kernel_fn(dtype):
-    lib = load_library("knot_diff")
-    suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
-    if dtype not in _consts_len_checked:
-        n = getattr(lib, f"ffmpc_knot_diff_consts_len_{suffix}")
-        n.restype = ctypes.c_int
-        if n() != N_CONSTS:
-            raise RuntimeError(f"diff kernel: KnotConstants holds {n()} values, "
-                               f"the packer writes {N_CONSTS}")
-        _consts_len_checked.add(dtype)
-    return bind(lib, f"ffmpc_knot_diff_{suffix}", ARGTYPES)
+def _kernel_fn(dtype, family="augmented"):
+    lib, prefix = kernel_library("knot_diff", family, dtype)
+    return bind(lib, f"{prefix}_{_SUFFIX[dtype]}", ARGTYPES)
 
 
-def resident_blocks_per_sm(dtype=torch.float32) -> int:
+def resident_blocks_per_sm(dtype=torch.float32, family: str = "augmented") -> int:
     """Blocks of the kernel (224 threads, 32 knots each) that one SM holds
     at once, as launched (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
     with its shared memory); needs a card."""
-    suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
-    fn = bind(load_library("knot_diff"), f"ffmpc_knot_diff_occupancy_{suffix}",
+    stem = library_stem("knot_diff", family)
+    fn = bind(load_library(stem), f"ffmpc_{stem}_occupancy_{_SUFFIX[dtype]}",
               [ctypes.POINTER(ctypes.c_int)])
     n = ctypes.c_int(0)
     err = fn(ctypes.byref(n))
@@ -106,18 +101,19 @@ def kernel_args(knot: KnotModel, consts: torch.Tensor, refs_run: ProblemRefs,
     B, N, nx, nu = _check_args(refs_run, ref_T, xs, us)
     if xs.device.type != "cuda":
         raise ValueError(f"diff_all: unsupported device {xs.device}")
-    if (nx, nu) != (KERNEL_NX, KERNEL_NU):
-        raise ValueError(f"diff_all: the kernel is built for nx={KERNEL_NX}, "
-                         f"nu={KERNEL_NU}; got nx={nx}, nu={nu}")
+    family = family_of(knot)
+    if (nx, nu) != (FAMILY_NX[family], KERNEL_NU):
+        raise ValueError(f"diff_all: the kernel is built for nx={FAMILY_NX[family]}, "
+                         f"nu={KERNEL_NU} ({family} knot); got nx={nx}, nu={nu}")
     dtype = xs.dtype
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"diff_all: unsupported dtype {dtype}")
     if B < 1 or N < 1:
         raise ValueError(f"diff_all: empty batch or horizon (B={B}, N={N})")
     if consts.dtype != dtype or consts.device.type != "cpu" \
-            or consts.numel() != N_CONSTS or not consts.is_contiguous():
-        raise ValueError("diff_all: consts must be pack_knot_consts(...) in the "
-                         f"states' dtype {dtype}")
+            or consts.numel() != consts_len(family) or not consts.is_contiguous():
+        raise ValueError(f"diff_all: consts must be pack_knot_consts(..., family={family!r}) "
+                         f"in the states' dtype {dtype}")
     tensors = dict(xs=xs, us=us)
     for f in ProblemRefs._fields:
         tensors[f"refs_run.{f}"] = getattr(refs_run, f)
@@ -138,7 +134,7 @@ def kernel_args(knot: KnotModel, consts: torch.Tensor, refs_run: ProblemRefs,
     refs_p = ptrs6(*(getattr(refs_run, f).data_ptr() for f in ProblemRefs._fields))
     refT_p = ptrs6(*(getattr(ref_T, f).data_ptr() for f in ProblemRefs._fields))
     outs_p = (ctypes.c_void_p * 12)(*(a.data_ptr() for a in (*run, *out[1:])))
-    return out, (consts.data_ptr(), N_CONSTS, xs.data_ptr(), us.data_ptr(), refs_p,
+    return out, (consts.data_ptr(), consts_len(family), xs.data_ptr(), us.data_ptr(), refs_p,
                  refT_p, outs_p, B, N, int(bool(knot.surface)))
 
 
@@ -147,7 +143,7 @@ def diff_all(knot: KnotModel, consts: torch.Tensor, refs_run: ProblemRefs,
     """Derivative pass on the hand-written CUDA kernel (see the module
     docstring for shapes).  CUDA tensors go to the kernel or raise; only CPU
     tensors go to ``diff_reference``.  ``consts`` is
-    ``pack_knot_consts(knot.model, knot.W, knot.surface, dtype)``.  Launches
+    ``pack_knot_consts(knot.model, knot.W, knot.surface, dtype, knot.family)``.  Launches
     on the current stream and does not synchronize.  ``diff_all.launches``
     counts the kernel launches (a plain integer, incremented here and
     nowhere else)."""
@@ -155,7 +151,7 @@ def diff_all(knot: KnotModel, consts: torch.Tensor, refs_run: ProblemRefs,
         _check_args(refs_run, ref_T, xs, us)
         return diff_reference(knot, refs_run, ref_T, xs, us)
     out, args = kernel_args(knot, consts, refs_run, ref_T, xs, us)
-    launch("diff", _kernel_fn(xs.dtype), xs.device, *args)
+    launch("diff", _kernel_fn(xs.dtype, knot.family), xs.device, *args)
     diff_all.launches += 1
     return out
 

@@ -211,7 +211,7 @@ def solve(knot: KnotModel, refs_run: ProblemRefs, ref_T: ProblemRefs, x0,
     overrides settings.reg_init per problem (an MPC loop carries the previous
     solve's final regularization here).  ``consts`` optional: the knot's
     ``pack_knot_consts`` in the solve's dtype, for callers that solve the
-    same knot many times (packed here otherwise).  Runs on the device and in
+    same knot many times (packed here otherwise; ``family=knot.family``).  Runs on the device and in
     the dtype of ``xs_init``."""
     S = settings
     if S.backward_mode not in ("kernel", "plain"):
@@ -231,7 +231,7 @@ def solve(knot: KnotModel, refs_run: ProblemRefs, ref_T: ProblemRefs, x0,
     refs_run = ProblemRefs(*(a.contiguous() for a in refs_run))
     ref_T = ProblemRefs(*(a.contiguous() for a in ref_T))
     if "kernel" in (S.rollout_mode, S.diff_mode) and consts is None:
-        consts = pack_knot_consts(knot.model, knot.W, knot.surface, dtype)
+        consts = pack_knot_consts(knot.model, knot.W, knot.surface, dtype, knot.family)
     # the rollout kernel reads its constants from device memory: one copy a
     # solve (the derivative kernel takes the host tensor)
     rollout_consts = consts.to(device) if S.rollout_mode == "kernel" else None

@@ -15,8 +15,10 @@ length, ``dv_try = -sum_{t,i} w_all[t,i] (xs[t,i] - xs_try[t,i])``
              refs_run: ProblemRefs with leading dims (B,N); ref_T: leading (B,)
     outputs  xs_try (B,A,N+1,nx)  us_try (B,A,N,nu)  cost_try (B,A)  dv_try (B,A)
 
-``rollout`` launches the hand-written kernel ``csrc/rollout.cu`` (device code
-in ``csrc/knot_chain.cuh``) for CUDA tensors, or raises, and uses
+``rollout`` launches the hand-written kernel ``csrc/rollout.cu`` (the
+augmented knot, nx = 21) or ``csrc/rollout_classical.cu`` (the classical
+knot, nx = 14), both ``csrc/rollout.cuh`` with device code in
+``csrc/knot_chain.cuh``, for CUDA tensors, or raises, and uses
 ``rollout_reference`` only for CPU tensors.  ``rollout_reference`` is the
 solver's alpha-batched forward pass, a Python loop over the knots of batched
 ``knot.calc`` calls: what the kernel is held against, and what
@@ -30,15 +32,23 @@ import ctypes
 import numpy as np
 import torch
 
-from ..ocp.action import (KnotModel, _build_q_soft_barrier, augmented_spec,
+from ..ocp.action import (KnotModel, _build_q_soft_barrier, _make_spec, augmented_spec,
                           lpf_coefficients)
 from ..ocp.weights import ProblemRefs
 from ._cuda_build import bind, launch, load_library
 
-KERNEL_NX, KERNEL_NU = 21, 7      # the shapes the kernel is instantiated for
+# The knot families the kernels are instantiated for, with their state widths
+# (all with nu = 7): csrc/knot_chain.cuh::Augmented and ::Classical.
+FAMILY_NX = {"augmented": 21, "classical": 14}
+KERNEL_NU = 7
+# The libraries of the rollout and derivative kernels for each family
+# (csrc/<stem>.cu; its C functions are ffmpc_<stem>_*).
+_LIBRARY_SUFFIX = {"augmented": "", "classical": "_classical"}
 
 # The cost slots of csrc/knot_chain.cuh (enum Slot), in summation order, with
 # their residual widths.  A knot's spec must list its terms in this order.
+# tau_reg and tau_soft_limits act on the inner knot's torque: the augmented
+# knot's torque state, the classical knot's control.
 COST_SLOTS = (("posture", 14), ("v_damp", 14), ("q_soft_limits", 14),
               ("ee_ori", 3), ("w_damp", 6), ("tau_reg", 7),
               ("tau_soft_limits", 7), ("ee_pos", 3), ("ee_xy", 3),
@@ -62,19 +72,50 @@ CONST_FIELDS = (
 N_CONSTS = sum(n for _, n in CONST_FIELDS)
 
 
-def cost_table(model, W, surface: bool):
+def family_of(knot: KnotModel) -> str:
+    """The knot's family, one the kernels are built for, or raise."""
+    if knot.family not in FAMILY_NX:
+        raise ValueError(f"the kernels are built for the knot families {sorted(FAMILY_NX)}; "
+                         f"this knot's is {knot.family!r}")
+    return knot.family
+
+
+def library_stem(kernel: str, family: str) -> str:
+    """The CUDA source (csrc/<stem>.cu) of ``kernel`` ("rollout" or
+    "knot_diff") for ``family``."""
+    return kernel + _LIBRARY_SUFFIX[family]
+
+
+def consts_len(family: str) -> int:
+    """Values of ``pack_knot_consts`` for ``family``: one set of
+    ``KnotConstants``, or (classical) two, the running knots' and the
+    terminal knot's."""
+    return N_CONSTS * (2 if family == "classical" else 1)
+
+
+def cost_table(model, W, surface: bool, family: str = "augmented",
+               terminal: bool = False):
     """The knot's cost terms laid out on the kernel's slots: per slot
     (scale = weight x dt scale, 0 if the term is absent; barrier flag;
     terminal flag) and per row (weight, lower bound, upper bound).  quad is
-    written as a weighted quadratic with unit weights (the same value)."""
-    spec, _ = augmented_spec(model, W, surface)
+    written as a weighted quadratic with unit weights (the same value).
+    ``terminal``: the classical terminal knot's table, its terms unscaled
+    (the augmented terminal knot keeps the running table's dt scale)."""
+    if family == "classical":
+        spec = _make_spec(model, W, surface)
+        # the derivative kernel forms a classical terminal knot's costs as
+        # the running table's over dt (knot_chain.cuh::classical_terminal_unscale)
+        if not all(t.dt_scaled for t in spec.values()):
+            raise ValueError("kernels: a classical cost term without the dt scale")
+    else:
+        spec, _ = augmented_spec(model, W, surface)
+    dt_scale = 1.0 if (family == "classical" and terminal) else float(W.dt_ocp)
     names = [n for n, _ in COST_SLOTS]
     order = [names.index(n) if n in names else -1 for n in spec]
     if -1 in order or order != sorted(order):
         raise ValueError(
             f"rollout kernel: cost terms {list(spec)} are not a subsequence "
             f"of the kernel's slots {names}")
-    dt = float(W.dt_ocp)
     n_s = len(COST_SLOTS)
     scale, barrier, terminal = np.zeros(n_s), np.zeros(n_s), np.zeros(n_s)
     row_w = np.zeros(N_ROWS)
@@ -84,7 +125,7 @@ def cost_table(model, W, surface: bool):
     for s, (name, nr) in enumerate(COST_SLOTS):
         term = spec.get(name)
         if term is not None:
-            scale[s] = term.weight * (dt if term.dt_scaled else 1.0)
+            scale[s] = term.weight * (dt_scale if term.dt_scaled else 1.0)
             terminal[s] = 1.0 if term.terminal else 0.0
             a = term.activation
             rows = slice(row0, row0 + nr)
@@ -109,20 +150,26 @@ def cost_table(model, W, surface: bool):
                 row_w=row_w, row_lb=row_lb, row_ub=row_ub)
 
 
-def pack_knot_consts(model, W, surface: bool, dtype) -> torch.Tensor:
+def pack_knot_consts(model, W, surface: bool, dtype,
+                     family: str = "augmented") -> torch.Tensor:
     """Flatten the model constants, the knot's scalars and its cost table
     into the kernel's ``KnotConstants`` layout: a flat CPU tensor in
-    ``dtype``.  Raises for a knot the kernel does not compute (another
-    contact model, a missing model)."""
+    ``dtype``.  For the classical family, two such sets, the running knots'
+    then the terminal knot's (``consts_len``).  Raises for a knot the kernel
+    does not compute (another family or contact model, a missing model)."""
     if model is None or W is None or surface is None:
         raise ValueError("rollout kernel: the knot carries no model / weights "
-                         "(only the augmented knot of ocp/action.py is ported)")
+                         "(only the knots of ocp/action.py are ported)")
+    if family not in FAMILY_NX:
+        raise ValueError(f"rollout kernel: knot family {family!r}; the kernels are "
+                         f"built for {sorted(FAMILY_NX)}")
     if W.contact_model != "normal_1d":
         raise ValueError(f"rollout kernel: contact_model {W.contact_model!r}; "
                          "only normal_1d is ported")
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"rollout kernel: unsupported dtype {dtype}")
-    alpha, beta = lpf_coefficients(W)
+    # the classical knot has no torque filter
+    alpha, beta = lpf_coefficients(W) if family == "augmented" else (0.0, 0.0)
     x_ref, _, _ = _build_q_soft_barrier(model, W.q_soft_limit_margin)
     lim = np.asarray(W.tau_limits, dtype=np.float64)
     fields = {name: getattr(model, name).detach().cpu().double().numpy()
@@ -134,14 +181,15 @@ def pack_knot_consts(model, W, surface: bool, dtype) -> torch.Tensor:
         z_press=float(W.z_press), kp=float(W.contact_gains[0]),
         kd=float(W.contact_gains[1]), damping_c=float(W.contact_inv_damping),
         fn_des=float(W.fn_des), u_lb=-lim, u_ub=lim, q_soft_ref=x_ref)
-    fields.update(cost_table(model, W, surface))
     parts = []
-    for name, n in CONST_FIELDS:
-        a = np.asarray(fields[name], dtype=np.float64).reshape(-1)
-        if a.size != n:
-            raise ValueError(f"rollout kernel: constant {name} has {a.size} values, "
-                             f"expected {n}")
-        parts.append(a)
+    for terminal in ((False, True) if family == "classical" else (False,)):
+        fields.update(cost_table(model, W, surface, family, terminal))
+        for name, n in CONST_FIELDS:
+            a = np.asarray(fields[name], dtype=np.float64).reshape(-1)
+            if a.size != n:
+                raise ValueError(f"rollout kernel: constant {name} has {a.size} values, "
+                                 f"expected {n}")
+            parts.append(a)
     return torch.tensor(np.concatenate(parts), dtype=dtype)
 
 
@@ -252,25 +300,36 @@ def _suffix(dtype):
     return {torch.float32: "f32", torch.float64: "f64"}[dtype]
 
 
-def _kernel_fn(dtype):
-    lib = load_library("rollout")
-    suffix = _suffix(dtype)
-    if dtype not in _consts_len_checked:
-        n = getattr(lib, f"ffmpc_rollout_consts_len_{suffix}")
+def kernel_library(kernel: str, family: str, dtype):
+    """The loaded library of ``kernel`` ("rollout" or "knot_diff") for
+    ``family``, and its C functions' prefix; at its first use for a dtype,
+    checks that the library's constants are as long as the packer's."""
+    stem = library_stem(kernel, family)
+    lib = load_library(stem)
+    prefix = f"ffmpc_{stem}"
+    if (stem, dtype) not in _consts_len_checked:
+        n = getattr(lib, f"{prefix}_consts_len_{_suffix(dtype)}")
         n.restype = ctypes.c_int
-        if n() != N_CONSTS:
-            raise RuntimeError(f"rollout kernel: KnotConstants holds {n()} values, "
-                               f"the packer writes {N_CONSTS}")
-        _consts_len_checked.add(dtype)
-    return bind(lib, f"ffmpc_rollout_{suffix}", ARGTYPES)
+        if n() != consts_len(family):
+            raise RuntimeError(f"{stem} kernel: its constants hold {n()} values, "
+                               f"the packer writes {consts_len(family)}")
+        _consts_len_checked.add((stem, dtype))
+    return lib, prefix
 
 
-def resident_blocks_per_sm(dtype=torch.float32, n_alphas: int = 10) -> int:
+def _kernel_fn(dtype, family="augmented"):
+    lib, prefix = kernel_library("rollout", family, dtype)
+    return bind(lib, f"{prefix}_{_suffix(dtype)}", ARGTYPES)
+
+
+def resident_blocks_per_sm(dtype=torch.float32, n_alphas: int = 10,
+                           family: str = "augmented") -> int:
     """Blocks of the kernel (contact instantiation) that one SM holds at
     once at ``n_alphas`` step lengths, as launched
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` with its shared
     memory); needs a card."""
-    fn = bind(load_library("rollout"), f"ffmpc_rollout_occupancy_{_suffix(dtype)}",
+    stem = library_stem("rollout", family)
+    fn = bind(load_library(stem), f"ffmpc_{stem}_occupancy_{_suffix(dtype)}",
               [ctypes.POINTER(ctypes.c_int), ctypes.c_int])
     n = ctypes.c_int(0)
     err = fn(ctypes.byref(n), int(n_alphas))
@@ -305,9 +364,10 @@ def kernel_args(knot: KnotModel, consts: torch.Tensor, x0, xs, us, K, kff, fs, w
     B, N, nx, nu = _check_args(x0, xs, us, K, kff, fs, w_all, feasible, refs_run, ref_T)
     if xs.device.type != "cuda":
         raise ValueError(f"rollout: unsupported device {xs.device}")
-    if (nx, nu) != (KERNEL_NX, KERNEL_NU):
-        raise ValueError(f"rollout: the kernel is built for nx={KERNEL_NX}, "
-                         f"nu={KERNEL_NU}; got nx={nx}, nu={nu}")
+    family = family_of(knot)
+    if (nx, nu) != (FAMILY_NX[family], KERNEL_NU):
+        raise ValueError(f"rollout: the kernel is built for nx={FAMILY_NX[family]}, "
+                         f"nu={KERNEL_NU} ({family} knot); got nx={nx}, nu={nu}")
     dtype = xs.dtype
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"rollout: unsupported dtype {dtype}")
@@ -315,9 +375,9 @@ def kernel_args(knot: KnotModel, consts: torch.Tensor, x0, xs, us, K, kff, fs, w
         raise ValueError(f"rollout: empty batch or horizon, or step lengths outside "
                          f"1..{max_alphas()} (B={B}, N={N}, A={n_alphas})")
     if consts.dtype != dtype or consts.device != xs.device \
-            or consts.numel() != N_CONSTS or not consts.is_contiguous():
-        raise ValueError("rollout: consts must be pack_knot_consts(...) in the "
-                         f"rollout's dtype {dtype}, copied to {xs.device}")
+            or consts.numel() != consts_len(family) or not consts.is_contiguous():
+        raise ValueError(f"rollout: consts must be pack_knot_consts(..., family={family!r}) "
+                         f"in the rollout's dtype {dtype}, copied to {xs.device}")
     tensors = dict(x0=x0, xs=xs, us=us, K=K, kff=kff, fs=fs, w_all=w_all, feasible=feasible)
     for f in ProblemRefs._fields:
         tensors[f"refs_run.{f}"] = getattr(refs_run, f)
@@ -334,7 +394,7 @@ def kernel_args(knot: KnotModel, consts: torch.Tensor, x0, xs, us, K, kff, fs, w
     ptrs = ctypes.c_void_p * 6
     refs_p = ptrs(*(getattr(refs_run, f).data_ptr() for f in ProblemRefs._fields))
     refT_p = ptrs(*(getattr(ref_T, f).data_ptr() for f in ProblemRefs._fields))
-    return outs, (consts.data_ptr(), N_CONSTS,
+    return outs, (consts.data_ptr(), consts_len(family),
                   *(a.data_ptr() for a in (x0, xs, us, K, kff, fs, w_all, feasible)),
                   refs_p, refT_p, *(o.data_ptr() for o in outs), B, N, A,
                   int(bool(knot.surface)))
@@ -345,8 +405,8 @@ def rollout(knot: KnotModel, consts: torch.Tensor, x0, xs, us, K, kff, fs, w_all
     """Line-search rollout on the hand-written CUDA kernel (see the module
     docstring for shapes).  CUDA tensors go to the kernel or raise; only CPU
     tensors go to ``rollout_reference``.  ``consts`` is
-    ``pack_knot_consts(knot.model, knot.W, knot.surface, dtype)`` on the
-    device of ``xs`` (the caller copies it there once, ``fddp.solve`` once a
+    ``pack_knot_consts(knot.model, knot.W, knot.surface, dtype, knot.family)``
+    on the device of ``xs`` (the caller copies it there once, ``fddp.solve`` once a
     solve; a launch copies nothing from the host).  Launches on the current
     stream and does not synchronize.  ``rollout.launches``
     counts the kernel launches (a plain integer, incremented here and
@@ -356,7 +416,7 @@ def rollout(knot: KnotModel, consts: torch.Tensor, x0, xs, us, K, kff, fs, w_all
                                  refs_run, ref_T, n_alphas)
     outs, args = kernel_args(knot, consts, x0, xs, us, K, kff, fs, w_all, feasible,
                              refs_run, ref_T, n_alphas)
-    launch("rollout", _kernel_fn(xs.dtype), xs.device, *args)
+    launch("rollout", _kernel_fn(xs.dtype, knot.family), xs.device, *args)
     rollout.launches += 1
     return outs
 

@@ -107,8 +107,8 @@ def ulp_distance(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 def backward_probe_inputs(nx: int = 21, dtype=torch.float32, device="cuda"):
     """The TPU probe's backward inputs (``default_rng(0)``, the same draws and
     formulas), N=4, B=128, at float32 as there, then cast to ``dtype``."""
-    if nx != KERNEL_NX:
-        raise ValueError(f"the backward kernel is built for nx={KERNEL_NX} only; got {nx}")
+    if nx not in KERNEL_NX:
+        raise ValueError(f"the backward kernel is built for nx in {KERNEL_NX} only; got {nx}")
     NX, NU, N, B = nx, 7, 4, 128
     rng = np.random.default_rng(0)
 

@@ -229,15 +229,18 @@ def test_math_ulp_helpers():
 
 def test_backward_probe_inputs_are_the_tpu_probes():
     """The probe's construction (default_rng(0), its formulas and draw
-    order), and nx other than 21 refused until the kernel is templated."""
+    order), at both state widths the kernel is built for (the TPU probe's
+    PROBE_NX), and any other refused."""
     args = pmath.backward_probe_inputs(device="cpu")
     rng = np.random.default_rng(0)
     Fx = np.eye(21, dtype=np.float32) + np.float32(0.05) * rng.normal(size=(128, 4, 21, 21)).astype(np.float32)
     np.testing.assert_array_equal(args[0].numpy(), Fx)
     assert [tuple(a.shape) for a in args[:2]] == [(128, 4, 21, 21), (128, 4, 21, 7)]
     assert float(args[12][0]) == pytest.approx(1e-4)
-    with pytest.raises(ValueError, match="nx=21"):
-        pmath.backward_probe_inputs(nx=14, device="cpu")
+    args14 = pmath.backward_probe_inputs(nx=14, device="cpu")
+    assert [tuple(a.shape) for a in args14[:2]] == [(128, 4, 14, 14), (128, 4, 14, 7)]
+    with pytest.raises(ValueError, match="nx in"):
+        pmath.backward_probe_inputs(nx=10, device="cpu")
 
 
 def test_roundtrip_plain_equals_numpy():

@@ -221,10 +221,19 @@ def test_unsupported_settings_raise(problem):
             t_make(problem["mt"], t_weights(), TSettings(**{field: "pallas"}), t_traj(),
                    TEpisode(controller="force_feedback", horizon=N), problem["q0"],
                    dtype=torch.float64, device="cpu")(*problem["args"])
+    # an unknown controller is refused; the closed loop still refuses the
+    # classical one (its batched solve is tests/test_torch_classical.py's)
     with pytest.raises(ValueError, match="force_feedback"):
         t_make(problem["mt"], t_weights(), TSettings(), t_traj(),
-               TEpisode(controller="classical", horizon=N), problem["q0"],
+               TEpisode(controller="lqr", horizon=N), problem["q0"],
                dtype=torch.float64, device="cpu")
+    from ffmpc_tpu_torch.run.batch_runner import make_episode_fn
+    from ffmpc_tpu_torch.sim.device_plant import make_table_params
+    with pytest.raises(ValueError, match="force_feedback"):
+        make_episode_fn(problem["mt"], t_weights(), TSettings(), t_traj(),
+                        make_table_params(0.0, dtype=torch.float64, device="cpu"),
+                        TEpisode(controller="classical", horizon=N), problem["q0"],
+                        dtype=torch.float64, device="cpu")
     with pytest.raises(ValueError, match="model lives on"):
         t_make(problem["mt"], t_weights(), TSettings(), t_traj(),
                TEpisode(controller="force_feedback", horizon=N), problem["q0"],
