@@ -25,7 +25,11 @@ cases; B=256 and 1024 solves against plain mode), stages
 `csrc/probes.cu` through their entry points `ffmpc_tpu_torch/tools/`),
 plant (float32 against float64; the framework-free replay fixture),
 closed_loop, b1 (the B=1 replan, RTI and closed-loop tick against the 5 ms
-budget), ensemble.  Each phase prints JSON lines; any failure raises, so the
+budget), ensemble, classical_loop (the classical controller's closed loop
+and ensemble on the classical instantiations: kernels against plain mode at
+float64 over the knot switch, 240 float32 ticks at E=1 and N=36, the
+512 x 100 classical ensemble against the JAX package's figures).  Each
+phase prints JSON lines; any failure raises, so the
 exit code is non-zero and the final line is not printed.
 
 The last line is `{"ok": true, "device": {...}}`; the line before it is
@@ -34,7 +38,8 @@ knot_diff, and the probes probe_math, probe_stream, probe_stream_io,
 probe_roundtrip), its launches (the solver kernels' on the main path, with
 the closed loop's, the ensemble's and the classical solve's beside; the
 probes' on their entry points; the solver kernels' classical instantiations
-under "classical"), its error against the plain version, its time, the plain version's
+under "classical", with the classical closed loop's and ensemble's
+launches), its error against the plain version, its time, the plain version's
 time and the card's bound for the same work.  Times are CUDA events around
 back-to-back calls, so for a launch-bound call they are the host's launch
 interval; the probes are also timed as device time (20 calls captured in
@@ -2269,6 +2274,9 @@ def phase_probes():
 PLANT_F32_RTOL = 1e-3
 PLANT_E = 512
 REPLAY_FIXTURE = "tests/fixtures/host_ff_flat_replay.npz"
+# the fixture's first 1.2 s (of 1.6 s; contact from 0.84 s): the replay's
+# gates read the errors at 1 s and the contact force from 0.9 s
+REPLAY_TICKS = 240
 
 
 def pressed_and_free_states(E, dtype64=torch.float64):
@@ -2300,11 +2308,11 @@ def pressed_and_free_states(E, dtype64=torch.float64):
 
 def replay_fixture(dtype):
     """The framework-free replay of a recorded host MuJoCo force-feedback
-    episode through the plant at `dtype`: the fidelity bounds of
-    tests/test_device_plant_fidelity.py."""
+    episode through the plant at `dtype`, its first REPLAY_TICKS ticks: the
+    fidelity bounds of tests/test_device_plant_fidelity.py."""
     from ffmpc_tpu_torch.sim.device_plant import init_plant_state, make_table_params, plant_step
     with np.load(Path(__file__).resolve().parent / REPLAY_FIXTURE) as z:
-        rec = {k: np.asarray(z[k]) for k in z.files}
+        rec = {k: np.asarray(z[k])[:REPLAY_TICKS] for k in z.files}
     model = make_panda_model("plant", dtype=dtype, device="cuda")
     table = make_table_params(0.0, dtype=dtype, device="cuda")
     state = init_plant_state(np.asarray(KEYFRAMES["neutral"]), dtype=dtype, device="cuda")
@@ -2372,15 +2380,18 @@ def phase_plant():
         raise RuntimeError(f"plant: float32 vs float64 or replay fidelity out of bounds: {rec}")
 
 
-def flagship_episode(dtype, horizon, n_ticks, settings, device="cuda"):
-    """The flagship force-feedback episode (weights, trajectory, filter
-    poles of the JAX ensemble), flat table, from the neutral pose."""
+def flagship_episode(dtype, horizon, n_ticks, settings, device="cuda",
+                     controller="force_feedback"):
+    """The flagship episode (weights, trajectory, filter poles of the JAX
+    ensemble), flat table, from the neutral pose: the force-feedback
+    controller's, or with `controller="classical"` its classical twin (the
+    same weights, trajectory and table)."""
     from ffmpc_tpu_torch.ocp.weights import FLAGSHIP_DT_MPC, flagship_ff_alpha
     from ffmpc_tpu_torch.run.batch_runner import make_episode_fn
     from ffmpc_tpu_torch.sim.device_plant import make_table_params
     W = flagship_weights()
     model = make_panda_model("plant", dtype=dtype, device=device)
-    ep = EpisodeConfig(controller="force_feedback", horizon=horizon, n_ticks=n_ticks,
+    ep = EpisodeConfig(controller=controller, horizon=horizon, n_ticks=n_ticks,
                        ff_alpha_ctrl=flagship_ff_alpha(FLAGSHIP_DT_MPC))
     return make_episode_fn(model, W, settings, flagship_trajectory(),
                            make_table_params(0.0, dtype=dtype, device=device), ep,
@@ -2424,46 +2435,71 @@ def telemetry_summary(tl, every=CL_TRACE_EVERY):
         {"t": round(float(t[-1]), 4), "fn_N": float(fn[-1]), "err_3d_mm": float(e3[-1]) * 1e3}]
 
 
+def loop_kernel_vs_plain(controller, N, ticks, t0, path, iters=3, E=CL_ENSEMBLE_E,
+                         tie_factor=None):
+    """The float64 flagship episode of `controller` at E episodes (the
+    neutral pose and the pose + 0.01 rad), horizon N, `iters` iterations,
+    `ticks` ticks from t0 over the surface flag's switch at 0.80 s (the free
+    knot before it, the contact knot after), on the three kernels against
+    plain mode: the same iterations and fallback ticks, every telemetry
+    field within CL_F64_RTOL of its largest magnitude (max with 1), and
+    both knots run.  With `tie_factor`, plain mode also runs from the
+    initial states times 1 + eps z (`perturbed`), and a field may instead
+    be within `tie_factor` times that run's distance from plain mode (the
+    yardstick).  The kernel run must launch each kernel once a tick; plain
+    mode launches none.  Returns the record, with "ok"."""
+    dtype = torch.float64
+    q0s = torch.as_tensor(KEYFRAMES["neutral"], dtype=dtype, device="cuda")[None].repeat(E, 1)
+    q0s[1:] += 0.01
+    runs = [("kernel", q0s), ("plain", q0s)]
+    if tie_factor is not None:
+        runs.append(("plain", perturbed([q0s])[0]))
+    tl = []
+    for mode, q0 in runs:
+        S = FDDPSettings(max_iters=iters, backward_mode=mode, rollout_mode=mode,
+                         diff_mode=mode)
+        ep = flagship_episode(dtype, N, ticks, S, controller=controller)
+        reset_launches()
+        tl.append(ep.chunk(ep.init(q0), t0, ticks)[1])
+        counts = read_launches()
+        if mode == "kernel":
+            require_launches(path, counts, ticks)
+        elif any(counts.values()):
+            raise RuntimeError(f"{path}: plain mode launched kernels: {counts}")
+    torch.cuda.synchronize()
+
+    def distance(a, b):
+        if a.dtype in (torch.bool, torch.int32):
+            return int((a != b).sum())
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
+    rel = {k: distance(a, tl[1][k]) for k, a in tl[0].items()}
+    ts = tl[0]["t"][0] - 0.005
+    rec = {"dtype": "float64", "E": E, "N": N, "max_iters": iters, "t0": t0,
+           "ticks": ticks, "rel_err_kernel_vs_plain": rel, "rtol": CL_F64_RTOL,
+           "iters": tl[0]["iters"][0].tolist(),
+           "contact_knot_ticks": int((ts >= 0.8).sum())}
+    bar = {k: CL_F64_RTOL for k in rel}
+    if tie_factor is not None:
+        yard = {k: distance(a, tl[1][k]) for k, a in tl[2].items()}
+        bar = {k: max(CL_F64_RTOL, tie_factor * yard[k]) for k in rel}
+        rec.update(rel_err_perturbed_plain_vs_plain=yard, tie_factor=tie_factor)
+    ok = all(v == 0 for k, v in rel.items() if k in ("iters", "fallback")) and all(
+        v <= bar[k] for k, v in rel.items() if k not in ("iters", "fallback"))
+    rec["ok"] = bool(ok and 0 < rec["contact_knot_ticks"] < ticks)
+    return rec
+
+
 def phase_closed_loop():
     """(a) The float64 episode at E=2, N=8, 3 iterations, 8 ticks from
     t0 = 0.78 s (the free knot until 0.80 s, the contact knot after), on the
     three kernels against plain mode: same iterations on every tick, every
-    telemetry field within CL_F64_RTOL.  (b) Full width: float32, E=1, N=40,
-    10 iterations, 240 ticks from t = 0 (contact from tick 161), the three
-    kernels: finite telemetry and no tick on the divergence fallback, unless
-    a float64 run of the same ticks takes the same fallback ticks.  Returns
-    the launch counts of (b)'s run."""
-    dtype = torch.float64
-    q0s = torch.as_tensor(KEYFRAMES["neutral"], dtype=dtype, device="cuda")[None].repeat(
-        CL_ENSEMBLE_E, 1)
-    q0s[1] += 0.01
-    tl = {}
-    for mode in ("kernel", "plain"):
-        S = FDDPSettings(max_iters=3, backward_mode=mode, rollout_mode=mode, diff_mode=mode)
-        ep = flagship_episode(dtype, 8, 8, S)
-        reset_launches()
-        tl[mode] = ep.chunk(ep.init(q0s), 0.78, 8)[1]
-        counts = read_launches()
-        if mode == "kernel":
-            require_launches("closed loop (a)", counts, 8)
-        elif any(counts.values()):
-            raise RuntimeError(f"closed loop (a): plain mode launched kernels: {counts}")
-    torch.cuda.synchronize()
-    rel = {}
-    for k, a in tl["kernel"].items():
-        b = tl["plain"][k]
-        if a.dtype in (torch.bool, torch.int32):
-            rel[k] = int((a != b).sum())
-            continue
-        rel[k] = float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
-    ts = tl["kernel"]["t"][0] - 0.005
-    rec_a = {"dtype": "float64", "E": CL_ENSEMBLE_E, "N": 8, "max_iters": 3, "t0": 0.78,
-             "ticks": 8, "rel_err_kernel_vs_plain": rel, "rtol": CL_F64_RTOL,
-             "iters": tl["kernel"]["iters"][0].tolist(),
-             "contact_knot_ticks": int((ts >= 0.8).sum())}
-    ok = all(v == 0 for k, v in rel.items() if k in ("iters", "fallback")) and all(
-        v <= CL_F64_RTOL for k, v in rel.items() if k not in ("iters", "fallback"))
-    ok = ok and 0 < rec_a["contact_knot_ticks"] < 8
+    telemetry field within CL_F64_RTOL (`loop_kernel_vs_plain`).  (b) Full
+    width: float32, E=1, N=40, 10 iterations, 240 ticks from t = 0 (contact
+    from tick 161), the three kernels: finite telemetry and no tick on the
+    divergence fallback, unless a float64 run of the same ticks takes the
+    same fallback ticks.  Returns the launch counts of (b)'s run."""
+    rec_a = loop_kernel_vs_plain("force_feedback", 8, 8, 0.78, "closed loop (a)")
+    ok = rec_a.pop("ok")
     emit({"phase": "closed_loop", "case": "a", **rec_a})
     if not ok:
         raise RuntimeError(f"closed loop (a): kernel mode and plain mode disagree: {rec_a}")
@@ -2504,56 +2540,16 @@ def phase_closed_loop():
 
 B1_BUDGET_MS = 5.0
 B1_SAMPLES = 50
+B1_LOOP_TICKS = 20          # ticks of each closed-loop tick run
 
 
-def phase_b1():
-    """The B=1 legs of bench.py at full width (float32, N=40, the contact
-    knot, the three kernels): the replan p50 / p99 of 10 iterations over 50
-    distinct warm-start inputs (one untimed first), the RTI p50 at
-    max_iters=1, (p50 - rti) / 9 per iteration; the closed-loop tick (the
-    episode at E=1, 40 ticks from t = 0, 3 timed runs after a warm-up); and
-    one B=1 tick split into solve / plant / policy (host clock around the
-    episode's calls of fddp.solve and plant_step, each ended by a
-    synchronize; policy is the rest of the tick), with the host syncs of the
-    solve counted (bool() of a card tensor).  The 5 ms budget is printed
-    beside, not gated."""
+def tick_split(episode, carry, k0, n=5):
+    """Ticks k0 .. k0 + n - 1 of `episode` (E=1) from `carry`, one at a
+    time, each split into solve / plant / policy: the host clock around the
+    episode's calls of fddp.solve and plant_step (wrapped at module level),
+    each ended by a synchronize; policy is the rest of the tick; with the
+    host syncs of the solve counted (bool() of a card tensor)."""
     from ffmpc_tpu_torch.run import batch_runner
-    dtype = torch.float32
-    model, W, traj, ep, q0 = flagship(dtype)
-    tau_g = gravity_torque(model, torch.as_tensor(q0, dtype=dtype, device="cuda")).cpu().numpy()
-    rng = np.random.default_rng(0)
-    argsets = [warm_start_args(1, q0, tau_g, rng) for _ in range(B1_SAMPLES + 1)]
-
-    def sample_ms(solve):
-        solve(*argsets[0])
-        torch.cuda.synchronize()
-        out = []
-        for a in argsets[1:]:
-            t0 = time.perf_counter()
-            solve(*a)
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return np.asarray(out)
-
-    replan = sample_ms(make_batched_solve_fn(model, W, FDDPSettings(max_iters=ITERS), traj, ep,
-                                             q0, surface=True, dtype=dtype, device="cuda"))
-    rti = sample_ms(make_batched_solve_fn(model, W, FDDPSettings(max_iters=1), traj, ep, q0,
-                                          surface=True, dtype=dtype, device="cuda"))
-    p50, p99, rti50 = (float(np.percentile(replan, 50)), float(np.percentile(replan, 99)),
-                       float(np.percentile(rti, 50)))
-
-    episode = flagship_episode(dtype, HORIZON, 40, FDDPSettings(max_iters=ITERS))
-    q0b = torch.as_tensor(q0, dtype=dtype, device="cuda")[None]
-    episode(q0b)
-    torch.cuda.synchronize()
-    runs = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        episode(q0b)
-        torch.cuda.synchronize()
-        runs.append((time.perf_counter() - t0) * 1e3 / 40)
-
-    # one tick split: wrap the episode's two module-level calls
     acc = {"solve": 0.0, "plant": 0.0, "syncs_in_solve": 0}
     orig_solve, orig_plant = batch_runner.fddp_solve, batch_runner.plant_step
     orig_bool = torch.Tensor.__bool__
@@ -2578,13 +2574,11 @@ def phase_b1():
             return r
         return wrapper
 
-    carry = episode.init(q0b)
-    carry, _ = episode.chunk(carry, 0.0, 4)            # a warm start, as in a running loop
     split = []
     batch_runner.fddp_solve = timed(orig_solve, "solve")
     batch_runner.plant_step = timed(orig_plant, "plant")
     try:
-        for k in range(4, 9):
+        for k in range(k0, k0 + n):
             for key in acc:
                 acc[key] = 0
             torch.cuda.synchronize()
@@ -2597,6 +2591,59 @@ def phase_b1():
                           "syncs_in_solve": acc["syncs_in_solve"], "iters": int(tl["iters"][0, 0])})
     finally:
         batch_runner.fddp_solve, batch_runner.plant_step = orig_solve, orig_plant
+    return split
+
+
+def phase_b1():
+    """The B=1 legs of bench.py at full width (float32, N=40, the contact
+    knot, the three kernels): the replan p50 / p99 of 10 iterations over 50
+    distinct warm-start inputs (one untimed first), the RTI p50 at
+    max_iters=1, (p50 - rti) / 9 per iteration; the closed-loop tick (the
+    episode at E=1, B1_LOOP_TICKS ticks from t = 0, 3 timed runs after a
+    warm-up); and
+    one B=1 tick split into solve / plant / policy (host clock around the
+    episode's calls of fddp.solve and plant_step, each ended by a
+    synchronize; policy is the rest of the tick), with the host syncs of the
+    solve counted (bool() of a card tensor; `tick_split`).  The 5 ms budget
+    is printed beside, not gated."""
+    dtype = torch.float32
+    model, W, traj, ep, q0 = flagship(dtype)
+    tau_g = gravity_torque(model, torch.as_tensor(q0, dtype=dtype, device="cuda")).cpu().numpy()
+    rng = np.random.default_rng(0)
+    argsets = [warm_start_args(1, q0, tau_g, rng) for _ in range(B1_SAMPLES + 1)]
+
+    def sample_ms(solve):
+        solve(*argsets[0])
+        torch.cuda.synchronize()
+        out = []
+        for a in argsets[1:]:
+            t0 = time.perf_counter()
+            solve(*a)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return np.asarray(out)
+
+    replan = sample_ms(make_batched_solve_fn(model, W, FDDPSettings(max_iters=ITERS), traj, ep,
+                                             q0, surface=True, dtype=dtype, device="cuda"))
+    rti = sample_ms(make_batched_solve_fn(model, W, FDDPSettings(max_iters=1), traj, ep, q0,
+                                          surface=True, dtype=dtype, device="cuda"))
+    p50, p99, rti50 = (float(np.percentile(replan, 50)), float(np.percentile(replan, 99)),
+                       float(np.percentile(rti, 50)))
+
+    episode = flagship_episode(dtype, HORIZON, B1_LOOP_TICKS, FDDPSettings(max_iters=ITERS))
+    q0b = torch.as_tensor(q0, dtype=dtype, device="cuda")[None]
+    episode(q0b)
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        episode(q0b)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3 / B1_LOOP_TICKS)
+
+    carry = episode.init(q0b)
+    carry, _ = episode.chunk(carry, 0.0, 4)            # a warm start, as in a running loop
+    split = tick_split(episode, carry, 4)
     med = {k: float(np.median([s[k] for s in split])) for k in split[0]}
     emit({"phase": "b1", "dtype": "float32", "N": HORIZON, "budget_ms": B1_BUDGET_MS,
           "replan_ms_p50": p50, "replan_ms_p99": p99, "replan_samples": len(replan),
@@ -2629,53 +2676,322 @@ ENSEMBLE_JAX_RECORD = {"rms_tan_mean": 0.04173944517970085,
 ENSEMBLE_RMS_RTOL = 1e-3
 
 
-def phase_ensemble():
-    """run_ensemble("force_feedback", "flat", batch=512, ticks=100, seed=0,
-    perturb_q=0.01) on the three kernels; rms_tan_mean and rms_tan_p95
-    within ENSEMBLE_RMS_RTOL of the JAX package's on the same configuration
-    (ENSEMBLE_JAX), fn_final_mean equal.  Returns the launch
-    counts of its run."""
+def ensemble_against_jax(controller, want, phase, horizon=40):
+    """run_ensemble(controller, "flat", batch=512, ticks=100, horizon,
+    seed=0, perturb_q=0.01) on the three kernels; rms_tan_mean and
+    rms_tan_p95 within ENSEMBLE_RMS_RTOL of the JAX package's on the same
+    configuration (`want`), fn_final_mean equal.  Returns (the record, whether
+    it passes, the launch counts of its run); `phase` names the run in a
+    launch-count failure."""
     from ffmpc_tpu_torch.run.ensemble import run_ensemble
     reset_launches()
-    out, telem = run_ensemble("force_feedback", "flat", batch=512, ticks=100, seed=0,
-                              perturb_q=0.01, verbose=False, device="cuda")
+    out, telem = run_ensemble(controller, "flat", batch=512, ticks=100, horizon=horizon,
+                              seed=0, perturb_q=0.01, verbose=False, device="cuda")
     counts = read_launches()
-    require_launches("ensemble", counts, 100)
+    require_launches(phase, counts, 100)
     finite = all(np.isfinite(v).all() for v in telem.values() if v.dtype.kind == "f")
-    rel = abs(out["rms_tan_mean"] - ENSEMBLE_JAX["rms_tan_mean"]) / ENSEMBLE_JAX["rms_tan_mean"]
-    rel95 = abs(out["rms_tan_p95"] - ENSEMBLE_JAX["rms_tan_p95"]) / ENSEMBLE_JAX["rms_tan_p95"]
-    rec = {"phase": "ensemble", **out, "launches": counts, "finite": finite,
+    rel = abs(out["rms_tan_mean"] - want["rms_tan_mean"]) / want["rms_tan_mean"]
+    rel95 = abs(out["rms_tan_p95"] - want["rms_tan_p95"]) / want["rms_tan_p95"]
+    rec = {**out, "horizon": horizon, "launches": counts, "finite": finite,
            "fallback_ticks": int(telem["fallback"].sum()),
-           "jax_package_cpu_float32": ENSEMBLE_JAX,
-           "jax_tpu_record_results_ensemble512_json": ENSEMBLE_JAX_RECORD,
+           "mean_iters": float(telem["iters"].mean()), "jax_package_cpu_float32": want,
            "rms_tan_mean_rel_diff_vs_jax": rel, "rms_tan_p95_rel_diff_vs_jax": rel95,
-           "rtol": ENSEMBLE_RMS_RTOL,
-           "rms_tan_mean_rel_diff_vs_record": abs(
-               out["rms_tan_mean"] - ENSEMBLE_JAX_RECORD["rms_tan_mean"])
-           / ENSEMBLE_JAX_RECORD["rms_tan_mean"]}
-    emit(rec)
-    if (not finite or max(rel, rel95) > ENSEMBLE_RMS_RTOL
-            or out["fn_final_mean"] != ENSEMBLE_JAX["fn_final_mean"]):
-        raise RuntimeError(f"ensemble: {out} against JAX {ENSEMBLE_JAX} "
+           "rtol": ENSEMBLE_RMS_RTOL}
+    ok = (finite and max(rel, rel95) <= ENSEMBLE_RMS_RTOL
+          and out["fn_final_mean"] == want["fn_final_mean"])
+    return rec, ok, counts
+
+
+def phase_ensemble():
+    """The force-feedback ensemble against the JAX package's
+    (`ensemble_against_jax`, ENSEMBLE_JAX), with the TPU record beside.
+    Returns the launch counts of its run."""
+    rec, ok, counts = ensemble_against_jax("force_feedback", ENSEMBLE_JAX, "ensemble")
+    emit({"phase": "ensemble", **rec,
+          "jax_tpu_record_results_ensemble512_json": ENSEMBLE_JAX_RECORD,
+          "rms_tan_mean_rel_diff_vs_record": abs(
+              rec["rms_tan_mean"] - ENSEMBLE_JAX_RECORD["rms_tan_mean"])
+          / ENSEMBLE_JAX_RECORD["rms_tan_mean"]})
+    if not ok:
+        raise RuntimeError(f"ensemble: {rec} against JAX {ENSEMBLE_JAX} "
                            f"(rtol {ENSEMBLE_RMS_RTOL}) or non-finite telemetry")
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase classical_loop: the classical controller's closed loop and ensemble
+# (x = (q, v), u = tau, nx = 14, N = 36) on the classical instantiations
+# ---------------------------------------------------------------------------
+
+CL_LOOP_TICKS, CL_LOOP_CHUNK = 240, 20
+# Case (a) of the classical loop: the classical closed loop at float64 sits
+# on the box QP's ties (PERF.md: Quu spans 1e-5 to 3.5), so
+# CL_F64_RTOL cannot hold between any two implementations: over case (a)'s
+# ticks plain mode from initial states one rounding apart parts by 6.9e-7 in
+# tau_cmd, 6.7e-8 in the cost and 8.1e-9 in q on an H100 (1.3e-7 / 9.8e-9 /
+# 1.1e-9 on a CPU), and the kernels part from plain mode by 3.3e-7 / 2.6e-8
+# / 4.0e-9.  So a field there is held at CL_F64_RTOL or within
+# CL_LOOP_TIE_FACTOR times that yardstick, measured in the same run;
+# iterations and fallback ticks stay equal (a wrong index or sign gives
+# O(1)).
+CL_LOOP_TIE_FACTOR = 10.0
+CL_SPLIT_TICKS = (20, 220)      # tick splits from the carries there: free, contact
+# The JAX package's classical ensemble on case (c)'s configuration (512 x
+# 100, flat, float32, horizon 36, seed 0, perturb_q 0.01), run on the CPU
+# by its own entry point: `JAX_PLATFORMS=cpu python -m ffmpc_tpu.run.ensemble
+# --controller classical --batch 512 --ticks 100 --horizon 36`.  The port on
+# an H100 came within 1.8e-5 (rms_tan_mean) and 3.3e-4 (rms_tan_p95) of it,
+# float32 against float32 on another machine, so ENSEMBLE_RMS_RTOL (1e-3)
+# holds here too; the port's own float32 kernels part from its float64
+# kernels by 4.8e-4 / 6.1e-4 on this configuration (an H100,
+# `classical_ensemble_parting`).
+ENSEMBLE_JAX_CLASSICAL = {"rms_tan_mean": 0.007752562873065472,
+                          "rms_tan_p95": 0.00845207180827856, "fn_final_mean": 0.0}
+
+
+def cast_carry(carry, dtype):
+    """An episode carry (PlantState, xs, us, tau_prev, reg) in `dtype`."""
+    plant, *rest = carry
+    return (type(plant)(*(a.to(dtype) for a in plant)), *(a.to(dtype) for a in rest))
+
+
+def run_chunked(ep, q0s, ticks, chunk):
+    """`ticks` ticks of `ep` from t = 0 in calls of `chunk` ticks, each
+    ended by a synchronize: (telemetry, the carries at the chunk boundaries
+    by tick, the seconds inside the calls)."""
+    carry, carries, parts, wall = ep.init(q0s), {}, [], 0.0
+    for k0 in range(0, ticks, chunk):
+        carries[k0] = carry
+        t0 = time.perf_counter()
+        carry, tl = ep.chunk(carry, k0 * 0.005, min(chunk, ticks - k0))
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        parts.append(tl)
+    return {k: torch.cat([p[k] for p in parts], dim=1) for k in parts[0]}, carries, wall
+
+
+def stacked_solve_args(args_list):
+    """The solve arguments of several E=1 ticks of one knot as one batch."""
+    cat = torch.cat
+    refs = [ProblemRefs(*(cat([getattr(a[i], f) for a in args_list])
+                          for f in ProblemRefs._fields)) for i in (1, 2)]
+    return (args_list[0][0], *refs, *(cat([a[i] for a in args_list]) for i in (3, 4, 5, 6)))
+
+
+def tick_solve_args(ep, carry, k):
+    """The arguments of the solve that tick k of `ep` runs from `carry`:
+    (knot, refs_run, ref_T, x0, xs_init, us_init, reg0), captured from the
+    episode's call of fddp.solve (wrapped at module level) while the tick
+    runs."""
+    from ffmpc_tpu_torch.run import batch_runner
+    calls = []
+    orig = batch_runner.fddp_solve
+
+    def capture(*a, **kw):
+        calls.append(a[:6] + (kw["reg0"],))
+        return orig(*a, **kw)
+    batch_runner.fddp_solve = capture
+    try:
+        ep.chunk(carry, k * 0.005, 1)
+    finally:
+        batch_runner.fddp_solve = orig
+    return calls[0]
+
+
+def warm_start_solves(ep, ep64, carries):
+    """The solve of the tick at each chunk boundary (the running loop's
+    shifted warm start and carried regularization), three ways: the kernels
+    at float32, plain mode at float32 and plain mode at float64 (the float32
+    carry cast).  The ticks of one knot are solved as one batch.  Returns
+    each tick's iterations, accepted step lengths and final regularization
+    by way, and the shares of ticks on which two ways take the same
+    iterations and step lengths."""
+    groups = {}
+    for k, carry in sorted(carries.items()):
+        a32 = tick_solve_args(ep, carry, k)
+        a64 = tick_solve_args(ep64, cast_carry(carry, torch.float64), k)
+        groups.setdefault(bool(a32[0].surface), []).append((k, a32, a64))
+    ticks = []
+    for surface, items in groups.items():
+        args = {32: stacked_solve_args([a for _, a, _ in items]),
+                64: stacked_solve_args([a for _, _, a in items])}
+        res = {}
+        for way, bits, mode in (("kernel32", 32, "kernel"), ("plain32", 32, "plain"),
+                                ("plain64", 64, "plain")):
+            S = FDDPSettings(max_iters=ITERS, backward_mode=mode, rollout_mode=mode,
+                             diff_mode=mode)
+            res[way] = fddp_solve(*args[bits][:6], S, reg0=args[bits][6])
+        for j, (k, _, _) in enumerate(items):
+            ticks.append({"tick": k, "contact_knot": surface, **{
+                way: {"iters": int(r.iters[j]), "alpha_hist": r.alpha_hist[j].tolist(),
+                      "xreg": float(r.xreg[j])} for way, r in res.items()}})
+    ticks.sort(key=lambda t: t["tick"])
+
+    def same(a, b):
+        return sum(t[a]["iters"] == t[b]["iters"] and t[a]["alpha_hist"] == t[b]["alpha_hist"]
+                   for t in ticks) / len(ticks)
+    return {"ticks": ticks, "same_decisions_share": {
+        f"{a}_vs_{b}": same(a, b) for a, b in (("kernel32", "plain32"), ("kernel32", "plain64"),
+                                               ("plain32", "plain64"))}}
+
+
+def classical_loop_full_width():
+    """Case (b): the classical flagship episode at full width, float32, E=1,
+    N=36, 10 iterations, 240 ticks from t = 0 in calls of 20 ticks, on the
+    three kernels: finite telemetry and no tick on the divergence fallback
+    unless a float64 run of the same ticks takes the same ones; ms a tick,
+    mean iterations, contact ticks, the final normal force and 3D error, and
+    ticks split into solve / plant / policy (`tick_split`, from the carries
+    at CL_SPLIT_TICKS).  Returns (the launch counts of the 240 ticks, the
+    carries at the chunk boundaries)."""
+    S = FDDPSettings(max_iters=ITERS)
+    ep = flagship_episode(torch.float32, CL_HORIZON, CL_LOOP_TICKS, S, controller="classical")
+    q0 = torch.as_tensor(KEYFRAMES["neutral"], dtype=torch.float32, device="cuda")[None]
+    reset_launches()
+    tl, carries, wall = run_chunked(ep, q0, CL_LOOP_TICKS, CL_LOOP_CHUNK)
+    counts = read_launches()
+    require_launches("classical closed loop (b)", counts, CL_LOOP_TICKS)
+    finite = all(bool(torch.isfinite(v).all()) for v in tl.values() if v.is_floating_point())
+    fb = tl["fallback"][0].nonzero().flatten().tolist()
+    rec = {"dtype": "float32", "E": 1, "N": CL_HORIZON, "max_iters": ITERS,
+           "ticks": CL_LOOP_TICKS, "chunk_ticks": CL_LOOP_CHUNK, "wall_s": wall,
+           "ms_per_tick": wall / CL_LOOP_TICKS * 1e3, "launches": counts, "finite": finite,
+           "fallback_ticks": fb, "n_fallback_ticks": len(fb),
+           "mean_iters": float(tl["iters"].double().mean()),
+           "contact_ticks": int((tl["fn_meas"][0] > 0).sum()),
+           "fn_final_N": float(tl["fn_meas"][0, -1]),
+           "err_3d_final_mm": float(tl["err_3d"][0, -1]) * 1e3,
+           "trace": telemetry_summary(tl)}
+    ok = finite
+    if fb:
+        ep64 = flagship_episode(torch.float64, CL_HORIZON, CL_LOOP_TICKS, S,
+                                controller="classical")
+        fb64 = run_chunked(ep64, q0.double(), CL_LOOP_TICKS, CL_LOOP_CHUNK)[0]["fallback"]
+        rec["float64_fallback_ticks"] = fb64[0].nonzero().flatten().tolist()
+        ok = ok and set(fb) <= set(rec["float64_fallback_ticks"])
+    split = {str(k): tick_split(ep, carries[k], k) for k in CL_SPLIT_TICKS}
+    rec["tick_split_median_of_5"] = {
+        k: {f: float(np.median([t[f] for t in v])) for f in v[0]} for k, v in split.items()}
+    rec["tick_split"] = split
+    emit({"phase": "classical_loop", "case": "b", **rec})
+    if not ok:
+        raise RuntimeError(f"classical closed loop (b): non-finite telemetry or fallback "
+                           f"ticks {fb}")
+    return counts, carries
+
+
+def classical_warm_start_draw():
+    """Measured, not gated, and not run by main() (its plain float32 and
+    float64 solves take about 100 s on an H100's host): whether the running
+    loop's warm starts resolve the float32 tie.  Case (b)'s loop, then the
+    solve of the tick at each of its chunk boundaries three ways
+    (`warm_start_solves`)."""
+    carries = classical_loop_full_width()[1]
+    S = FDDPSettings(max_iters=ITERS)
+    ep, ep64 = (flagship_episode(dt, CL_HORIZON, CL_LOOP_TICKS, S, controller="classical")
+                for dt in (torch.float32, torch.float64))
+    ws = warm_start_solves(ep, ep64, {k: c for k, c in carries.items() if k})
+    emit({"phase": "classical_warm_start_draw", "measured_not_gated": True,
+          "max_iters": ITERS, **ws})
+    return ws
+
+
+def classical_ensemble():
+    """Case (c): the classical ensemble at horizon 36 against the JAX
+    package's (`ensemble_against_jax`, ENSEMBLE_JAX_CLASSICAL, float32).
+    Returns the launch counts of its run."""
+    rec, ok, counts = ensemble_against_jax("classical", ENSEMBLE_JAX_CLASSICAL,
+                                           "classical ensemble", horizon=CL_HORIZON)
+    emit({"phase": "classical_loop", "case": "c", **rec})
+    if not ok:
+        raise RuntimeError(f"classical ensemble: {rec} against JAX {ENSEMBLE_JAX_CLASSICAL} "
+                           f"(rtol {ENSEMBLE_RMS_RTOL}) or non-finite telemetry")
+    return counts
+
+
+def phase_classical_loop():
+    """The classical controller's closed loop and ensemble on the classical
+    instantiations of the three kernels: (a) `loop_kernel_vs_plain` at
+    float64, E=2, N=8, 3 iterations, 8 ticks from t0 = 0.78 s (both knots),
+    with the tie yardstick (CL_LOOP_TIE_FACTOR);
+    (b) `classical_loop_full_width`; (c) `classical_ensemble`.  Returns the
+    launch counts of (b) and (c) by path."""
+    rec_a = loop_kernel_vs_plain("classical", 8, 8, 0.78, "classical closed loop (a)",
+                                 tie_factor=CL_LOOP_TIE_FACTOR)
+    ok = rec_a.pop("ok")
+    emit({"phase": "classical_loop", "case": "a", **rec_a})
+    if not ok:
+        raise RuntimeError(f"classical closed loop (a): kernel mode and plain mode "
+                           f"disagree: {rec_a}")
+    return {"classical_closed_loop_240_ticks": classical_loop_full_width()[0],
+            "classical_ensemble_512x100": classical_ensemble()}
+
+
+PARTING_WAYS = {"kernel32": (torch.float32, "kernel"), "kernel64": (torch.float64, "kernel"),
+                "plain32": (torch.float32, "plain"), "plain64": (torch.float64, "plain")}
+
+
+def classical_ensemble_parting(ways=("kernel32", "kernel64"), batch=512, ticks=100):
+    """The float32 parting of case (c), measured, not run by main(): the
+    classical ensemble's configuration (flat, seed 0, perturb_q 0.01, N=36,
+    10 iterations; `flagship_episode`, the episode run_ensemble builds, in
+    one call of `ticks` ticks) at `batch` episodes from the same float32
+    initial states, each of `ways` (PARTING_WAYS: kernels or plain mode, at
+    float32 or float64): its quality figures and seconds a tick, and the
+    relative distances of rms_tan_mean and rms_tan_p95 between the ways.
+    Plain mode is launch-bound, 8-9 s a tick at batch 32 on an H100, so its
+    ways run at a small batch or on few ticks."""
+    q0 = np.asarray(KEYFRAMES["neutral"])
+    q0s = (q0[None] + 0.01 * np.random.default_rng(0).normal(size=(batch, 7))).astype(
+        np.float32)
+    figures = {}
+    for way in ways:
+        dtype, mode = PARTING_WAYS[way]
+        S = FDDPSettings(max_iters=ITERS, backward_mode=mode, rollout_mode=mode,
+                         diff_mode=mode)
+        ep = flagship_episode(dtype, CL_HORIZON, ticks, S, controller="classical")
+        tl, _, wall = run_chunked(ep, torch.as_tensor(q0s, dtype=dtype, device="cuda"),
+                                  ticks, ticks)
+        err = tl["err_tan"].double().cpu().numpy()
+        figures[way] = {
+            "rms_tan_mean": float(np.sqrt((err ** 2).mean())),
+            "rms_tan_p95": float(np.quantile(np.sqrt((err ** 2).mean(axis=1)), 0.95)),
+            "fn_final_mean": float(tl["fn_meas"][:, -1].double().mean()),
+            "mean_iters": float(tl["iters"].double().mean()), "s_per_tick": wall / ticks}
+        emit({"phase": "classical_ensemble_parting", "way": way, "batch": batch,
+              "ticks": ticks, **figures[way]})
+    rec = {f"{a}_vs_{b}": {k: abs(figures[a][k] - figures[b][k]) / figures[b][k]
+                           for k in ("rms_tan_mean", "rms_tan_p95")}
+           for i, a in enumerate(ways) for b in ways[i + 1:]}
+    emit({"phase": "classical_ensemble_parting", "batch": batch, "ticks": ticks, **rec})
+    return rec
+
+
 def main():
-    smi = phase_device()
-    phase_build()
-    kernels = [phase_kernels(), phase_rollout_kernel(), phase_diff_kernel()]
-    phase_small_reference()
-    phase_golden()
-    launches = phase_solve()
-    classical, classical_launches = phase_classical()
-    phase_stages()
-    probes = phase_probes()
-    phase_plant()
-    paths = {"closed_loop_240_ticks": phase_closed_loop()}
-    phase_b1()
-    paths["ensemble_512x100"] = phase_ensemble()
+    seconds = {}
+
+    def timed(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[phase.__name__] = round(time.perf_counter() - t0, 1)
+        return out
+
+    smi = timed(phase_device)
+    timed(phase_build)
+    kernels = [timed(phase_kernels), timed(phase_rollout_kernel), timed(phase_diff_kernel)]
+    timed(phase_small_reference)
+    timed(phase_golden)
+    launches = timed(phase_solve)
+    classical, classical_launches = timed(phase_classical)
+    timed(phase_stages)
+    probes = timed(phase_probes)
+    timed(phase_plant)
+    paths = {"closed_loop_240_ticks": timed(phase_closed_loop)}
+    timed(phase_b1)
+    paths["ensemble_512x100"] = timed(phase_ensemble)
     paths["classical_solve_1024"] = classical_launches
+    classical_paths = timed(phase_classical_loop)
+    emit({"phase_seconds": seconds})
     for entry in kernels:
         entry["launches_by_batch"] = {str(b): n[entry["name"]] for b, n in launches.items()}
         entry["launches"] = entry["launches_by_batch"][str(BATCHES[-1])]
@@ -2686,6 +3002,7 @@ def main():
         entry["classical"] = {
             "source": f"ffmpc_tpu_torch/csrc/{CL_LIBRARIES[entry['name']]}.cu",
             "replaces": entry["replaces"], "launches": classical_launches[entry["name"]],
+            "launches_by_path": {p: n[entry["name"]] for p, n in classical_paths.items()},
             "max_abs_err": c["max_abs_err"], "max_abs_err_dtype": c["max_abs_err_dtype"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,

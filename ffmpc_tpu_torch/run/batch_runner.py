@@ -1,14 +1,15 @@
 """Closed-loop MPC episodes and batched warm-started BoxFDDP solves.
 
-PyTorch counterpart of ``ffmpc_tpu/run/batch_runner.py``:
-``make_episode_fn`` for the force-feedback controller (the receding-horizon
-loop: problem construction, warm-started BoxFDDP solve on the three kernels,
-the Eq. 14 interpolated policy with the inverse actuation map, the
-divergence guard and torque clamp, and the 1 kHz plant substeps, for a batch
-of E episodes at once) and ``make_batched_solve_fn`` for both controllers
-(B independent solves of the full-horizon problem: the force-feedback
-controller's augmented knot, nx = 21, or the classical controller's knot,
-nx = 14).
+PyTorch counterpart of ``ffmpc_tpu/run/batch_runner.py``, for both
+controllers: the force-feedback controller's augmented knot (nx = 21) and
+the classical controller's knot (x = (q, v), nx = 14).
+``make_episode_fn`` is the receding-horizon loop (problem construction,
+warm-started BoxFDDP solve on the three kernels, the policy: for force
+feedback the Eq. 14 interpolated torque with the inverse actuation map, for
+the classical controller the first control; the divergence guard and torque
+clamp, and the 1 kHz plant substeps, for a batch of E episodes at once);
+``make_batched_solve_fn`` runs B independent solves of the full-horizon
+problem.
 
 Where the JAX package scans ticks and vmaps episodes, this module loops over
 ticks in Python and carries the episode batch as a leading dimension.  Every
@@ -41,8 +42,7 @@ from ..mpc.controllers import make_vertical_down_R
 
 @dataclass(frozen=True)
 class EpisodeConfig:
-    # "force_feedback" (the augmented knot) or "classical" (batched solves
-    # only: the classical closed loop is not ported yet)
+    # "force_feedback" (the augmented knot) or "classical" (x = (q, v))
     controller: str = "force_feedback"
     horizon: int = 36
     dt_mpc: float = 0.005
@@ -59,10 +59,10 @@ class EpisodeConfig:
 @dataclass(frozen=True)
 class DeviceUncertainty:
     """The benchmark's uncertainty protocol on the device: actuation gain a
-    and bias b on the command and on the torque estimate, and Gaussian
-    sensor noise on q, v and the torque estimate.  At the 200 Hz control
-    loop the reference's 2 ms observation and 1 ms command delays round to
-    zero control steps, so no delay is applied."""
+    and bias b on the command and (force feedback) on the torque estimate,
+    and Gaussian sensor noise on q, v and the torque estimate.  At the
+    200 Hz control loop the reference's 2 ms observation and 1 ms command
+    delays round to zero control steps, so no delay is applied."""
     a: float = 1.0          # actuation gain
     b: float = 0.0          # actuation bias [Nm]
     sigma_q: float = 0.0
@@ -74,12 +74,7 @@ class DeviceUncertainty:
 _KNOT_OF = {"force_feedback": make_augmented_knot, "classical": make_classical_knot}
 
 
-def _check_controller(ep: EpisodeConfig, episode: bool = False):
-    if episode and ep.controller != "force_feedback":
-        raise ValueError(
-            f"controller {ep.controller!r}: the closed loop runs the force_feedback "
-            "(augmented) knot family only; the classical closed loop and ensemble are "
-            "the next slice of the port (batched classical solves: make_batched_solve_fn)")
+def _check_controller(ep: EpisodeConfig):
     if ep.controller not in _KNOT_OF:
         raise ValueError(f"controller {ep.controller!r}: expected one of {sorted(_KNOT_OF)}")
 
@@ -109,7 +104,9 @@ def make_episode_fn(model: PandaModel, W: OCPWeights, settings: FDDPSettings,
                     traj, table: TableParams, ep: EpisodeConfig, q_nom,
                     torque_scale=None, uncertainty: Optional[DeviceUncertainty] = None,
                     dtype=torch.float32, device="cuda"):
-    """Build a closed-loop episode function over a batch of E episodes.
+    """Build a closed-loop episode function over a batch of E episodes of
+    ``ep.controller`` (its knot: nx = 21 for "force_feedback", 14 for
+    "classical").
 
     ``episode(q0s (E, 7), table_v=None)`` runs ``ep.n_ticks`` ticks from
     t = 0 and returns a dict of (E, n_ticks, ...) telemetry tensors (the JAX
@@ -121,18 +118,19 @@ def make_episode_fn(model: PandaModel, W: OCPWeights, settings: FDDPSettings,
     overrides ``table`` for the call.  ``model`` and ``table`` must live on
     ``device`` in ``dtype``."""
     dev = resolve_device(device)
-    _check_controller(ep, episode=True)
+    _check_controller(ep)
     _check_model(model, dev, dtype)
     N = ep.horizon
+    is_ff = ep.controller == "force_feedback"
     kw = dict(dtype=dtype, device=dev)
-    knots = {True: make_augmented_knot(model, W, surface=True),
-             False: make_augmented_knot(model, W, surface=False)}
-    # each family's kernel constants, packed once: the derivative kernel
+    knots = {s: _KNOT_OF[ep.controller](model, W, surface=s) for s in (True, False)}
+    # each knot's kernel constants, packed once: the derivative kernel
     # copies them to __constant__ memory at every launch and fddp.solve
     # copies them to the card once a solve for the rollout kernel, so
-    # switching families between ticks never reuses the other family's
+    # switching knots between ticks never reuses the other knot's
     uses_kernel = "kernel" in (settings.rollout_mode, settings.diff_mode)
-    consts = {s: (pack_knot_consts(model, W, s, dtype) if uses_kernel else None)
+    consts = {s: (pack_knot_consts(model, W, s, dtype, family=knots[s].family)
+                  if uses_kernel else None)
               for s in (True, False)}
     R_des = torch.as_tensor(make_vertical_down_R(), **kw)
     q_nom = torch.as_tensor(np.asarray(q_nom), **kw)
@@ -147,13 +145,17 @@ def make_episode_fn(model: PandaModel, W: OCPWeights, settings: FDDPSettings,
         plant, xs_w, us_w, _, reg = carry
         E = plant.q.shape[0]
         q, v = plant.q, plant.v
-        tau_hat = plant.tau_meas_act_filt
         if unc is not None:
             nz = tick_noise(unc, int((t_host / ep.dt_mpc).to(torch.int32)), dtype, dev)
             q = q + unc.sigma_q * nz[0]
             v = v + unc.sigma_dq * nz[1]
-            tau_hat = unc.a * tau_hat + unc.b + unc.sigma_tau * nz[2]
-        x0 = torch.cat([q, v, tau_hat], dim=-1)
+        if is_ff:
+            tau_hat = plant.tau_meas_act_filt
+            if unc is not None:
+                tau_hat = unc.a * tau_hat + unc.b + unc.sigma_tau * nz[2]
+            x0 = torch.cat([q, v, tau_hat], dim=-1)
+        else:
+            x0 = torch.cat([q, v], dim=-1)
 
         # warm start: shift the previous solution one knot, pin x0 in place
         # of the shifted first state (as the JAX episode does)
@@ -165,22 +167,25 @@ def make_episode_fn(model: PandaModel, W: OCPWeights, settings: FDDPSettings,
         refs_run, ref_T = build_problem_refs(
             traj, t_dev.expand(E), N, W.dt_ocp,
             x_reg_nom if ep.posture_ref_q_nom else x0[:, :14], tau_ref, R_des,
-            y_ref=x0, dtype=dtype, device=dev)
+            y_ref=(x0 if is_ff else None), dtype=dtype, device=dev)
         res = fddp_solve(knots[surf], refs_run, ref_T, x0, xs_init, us_init, settings,
                          reg0=reg, consts=consts[surf])
         # regularization carried across ticks (avoids re-climbing the ladder
         # on the stiff contact problem every solve)
         reg_next = torch.clamp(res.xreg, settings.reg_min, 1e4)
 
-        tau0 = res.xs[:, 0, 14:21]
-        tau1 = res.xs[:, 1, 14:21]
-        tau_tilde = tau0 + eps_pol * (tau1 - tau0)              # Eq. 14
-        # at the solve point the feedback terms vanish (x0 == xs[0]); keep
-        # the torque interpolation and the inverse actuation map
-        if ep.ff_inverse_actuation:
-            tau_raw = (tau_tilde - ep.ff_alpha_ctrl * tau_hat) / beta_c
+        if is_ff:
+            tau0 = res.xs[:, 0, 14:21]
+            tau1 = res.xs[:, 1, 14:21]
+            tau_tilde = tau0 + eps_pol * (tau1 - tau0)          # Eq. 14
+            # at the solve point the feedback terms vanish (x0 == xs[0]);
+            # keep the torque interpolation and the inverse actuation map
+            if ep.ff_inverse_actuation:
+                tau_raw = (tau_tilde - ep.ff_alpha_ctrl * tau_hat) / beta_c
+            else:
+                tau_raw = tau_tilde
         else:
-            tau_raw = tau_tilde
+            tau_raw = res.us[:, 0]
 
         # divergence guard + hard clamp (the reference's compute_control tail)
         unstable = ((~torch.isfinite(res.cost)) | (res.cost > 1e8)
@@ -220,7 +225,7 @@ def make_episode_fn(model: PandaModel, W: OCPWeights, settings: FDDPSettings,
         E = q0s.shape[0]
         plant0 = init_plant_state(q0s, dtype=dtype, device=dev)
         tau_g = gravity_torque(model, q0s)
-        x0 = torch.cat([q0s, torch.zeros_like(q0s), tau_g], dim=-1)
+        x0 = torch.cat([q0s, torch.zeros_like(q0s)] + ([tau_g] if is_ff else []), dim=-1)
         xs0 = x0[:, None].repeat(1, N + 1, 1)
         us0 = tau_g[:, None].repeat(1, N, 1)
         reg0 = torch.full((E,), settings.reg_init, **kw)

@@ -1,10 +1,13 @@
 """Batched closed-loop MPC ensembles: E perturbed episodes in one batch on
 one card.
 
-PyTorch counterpart of ``ffmpc_tpu/run/ensemble.py``: perturbed initial
-states (and, for the ``actuation_uncertainty`` scenario, the uncertainty
-protocol) roll out together on the device plant, every solve on the three
-kernels, with per-episode metrics reduced at the end.  The draws of the
+PyTorch counterpart of ``ffmpc_tpu/run/ensemble.py``, for both
+controllers: perturbed initial states (and, for the
+``actuation_uncertainty`` scenario, the uncertainty protocol) roll out
+together on the device plant, every solve on the three kernels (their
+instantiations for the controller's knot family), with per-episode metrics
+reduced at the end.  ``horizon`` defaults to 40, as the JAX package's does;
+the classical protocol of ``BASELINE.md`` is ``horizon=36``.  The draws of the
 perturbations and of the uncertainty parameters are the JAX package's
 (numpy generators), so both ensembles start from the same states.  Device
 meshes (``n_devices``) and checkpoints are not ported yet.
@@ -12,6 +15,8 @@ meshes (``n_devices``) and checkpoints are not ported yet.
 Usage:
     python -m ffmpc_tpu_torch.run.ensemble --batch 512 --ticks 400 \
         --controller force_feedback --scenario flat
+    python -m ffmpc_tpu_torch.run.ensemble --batch 512 --ticks 100 \
+        --controller classical --horizon 36
 """
 
 from __future__ import annotations

@@ -332,13 +332,26 @@ def test_batched_solve_equals_jax(jx):
 
 
 def test_episode_still_refuses_the_classical_controller(setup):
+    """The closed loop takes the classical controller: an episode of E=2
+    (horizon 4, 1 iteration, two ticks) runs on x = (q, v) and returns
+    (E, ticks, ...) telemetry (held against the JAX episode in
+    ``tests/test_torch_classical_loop.py``)."""
     from ffmpc_tpu_torch.run.batch_runner import make_episode_fn
     from ffmpc_tpu_torch.sim.device_plant import make_table_params
-    with pytest.raises(ValueError, match="next slice"):
-        make_episode_fn(setup.model, flagship_weights(), FDDPSettings(), flagship_trajectory(),
-                        make_table_params(0.0, dtype=torch.float64, device="cpu"),
-                        EpisodeConfig(controller="classical", horizon=4),
-                        setup.q0, dtype=torch.float64, device="cpu")
+    episode = make_episode_fn(setup.model, flagship_weights(), FDDPSettings(max_iters=1),
+                              flagship_trajectory(),
+                              make_table_params(0.0, dtype=torch.float64, device="cpu"),
+                              EpisodeConfig(controller="classical", horizon=4, n_ticks=2),
+                              setup.q0, dtype=torch.float64, device="cpu")
+    q0s = T(np.stack([setup.q0, setup.q0 + 0.01]))
+    carry = episode.init(q0s)
+    assert tuple(carry[1].shape) == (2, 5, NX) and tuple(carry[2].shape) == (2, 4, NU)
+    telem = episode(q0s)
+    assert tuple(telem["q"].shape) == (2, 2, 7) and tuple(telem["tau_cmd"].shape) == (2, 2, 7)
+    for key in ("t", "err_tan", "err_3d", "fn_meas", "cost", "iters", "fallback"):
+        assert tuple(telem[key].shape) == (2, 2), key
+    assert all(bool(torch.isfinite(v).all()) for v in telem.values() if v.is_floating_point())
+    assert not telem["fallback"].any()
 
 
 # ---------------------------------------------------------------------------

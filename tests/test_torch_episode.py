@@ -185,10 +185,13 @@ def test_noise_is_reproducible_and_chunked_equals_single(setup):
 
 
 def test_classical_controller_raises(setup):
-    with pytest.raises(ValueError, match="force_feedback"):
+    """Both controllers run in the closed loop (the classical one:
+    ``tests/test_torch_classical_loop.py``); a controller that is neither
+    raises, naming the two."""
+    with pytest.raises(ValueError, match="classical.*force_feedback"):
         t_episode_fn(setup["mt"], TWeights(), TSettings(), TTraj(**TRAJ_KW),
                      t_table(0.0, dtype=torch.float64, device="cpu"),
-                     TEpisode(controller="classical", horizon=4), setup["q0"],
+                     TEpisode(controller="impedance", horizon=4), setup["q0"],
                      dtype=torch.float64, device="cpu")
 
 

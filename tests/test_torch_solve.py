@@ -221,8 +221,10 @@ def test_unsupported_settings_raise(problem):
             t_make(problem["mt"], t_weights(), TSettings(**{field: "pallas"}), t_traj(),
                    TEpisode(controller="force_feedback", horizon=N), problem["q0"],
                    dtype=torch.float64, device="cpu")(*problem["args"])
-    # an unknown controller is refused; the closed loop still refuses the
-    # classical one (its batched solve is tests/test_torch_classical.py's)
+    # an unknown controller is refused by the batched solve and by the
+    # closed loop (both take "force_feedback" and "classical": the classical
+    # ones are tests/test_torch_classical.py's and
+    # tests/test_torch_classical_loop.py's)
     with pytest.raises(ValueError, match="force_feedback"):
         t_make(problem["mt"], t_weights(), TSettings(), t_traj(),
                TEpisode(controller="lqr", horizon=N), problem["q0"],
@@ -232,7 +234,7 @@ def test_unsupported_settings_raise(problem):
     with pytest.raises(ValueError, match="force_feedback"):
         make_episode_fn(problem["mt"], t_weights(), TSettings(), t_traj(),
                         make_table_params(0.0, dtype=torch.float64, device="cpu"),
-                        TEpisode(controller="classical", horizon=N), problem["q0"],
+                        TEpisode(controller="lqr", horizon=N), problem["q0"],
                         dtype=torch.float64, device="cpu")
     with pytest.raises(ValueError, match="model lives on"):
         t_make(problem["mt"], t_weights(), TSettings(), t_traj(),
