@@ -55,15 +55,27 @@ constexpr int kNW = 7;    // control w (unfiltered torque)
 // variants.  Its terminal knot has its own constants (kConstSets): the same
 // model, its cost table unscaled (Crocoddyl's terminal overload), where the
 // augmented terminal knot keeps the inner terms' dt scale.
+// kNC is the contact force's width: 1 for the normal contact (normal_1d), 3
+// for the point contact with its friction cone (point3d); it sets the
+// constants' cost table (CostLayout), the record's contact fields
+// (ContactRecord) and the rollout's tool rows (LaneRowLayout).
 struct Augmented {
   static constexpr bool kClassical = false;
   static constexpr int kNX = kNY;
   static constexpr int kConstSets = 1;
+  static constexpr int kNC = 1;
 };
 struct Classical {
   static constexpr bool kClassical = true;
   static constexpr int kNX = 2 * kNQ;
   static constexpr int kConstSets = 2;  // running knots, then the terminal knot
+  static constexpr int kNC = 1;
+};
+struct AugmentedPoint3d : Augmented {
+  static constexpr int kNC = 3;
+};
+struct ClassicalPoint3d : Classical {
+  static constexpr int kNC = 3;
 };
 
 // Barrier bounds at or beyond this magnitude act as no bound.
@@ -71,7 +83,10 @@ constexpr double kBig = 1e30;
 
 // Cost slots, in the order the knot's spec lists its terms
 // (ocp/action.py::_make_spec, then the outer terms of make_augmented_knot),
-// with the offset of each slot's rows in the row tables.
+// with the offset of each slot's rows in the row tables: the normal
+// contact's layout.  The point contact's (CostLayout<3>) has the same slots
+// up to vz_damp, then the friction cone's 4 rows, and 3 rows each of
+// unilateral and fn_track.
 enum Slot {
   kPosture, kVDamp, kQSoft, kEeOri, kWDamp, kTauReg, kTauSoft, kEePos, kEeXy,
   kEeVxy, kPlaneZ, kVzDamp, kUnilateral, kFnTrack, kYReg, kWReg, kWSoft,
@@ -85,11 +100,47 @@ enum RowOffset {
   kRowWSoft = 116, kNumRows = 123
 };
 
+// The slots and rows that follow the contact's, by contact width.
+template <int NC>
+struct CostLayout;
+template <>
+struct CostLayout<1> {
+  static constexpr int kFrictionCone = -1, kUnilateral = ffmpc::kUnilateral,
+                       kFnTrack = ffmpc::kFnTrack, kYReg = ffmpc::kYReg, kWReg = ffmpc::kWReg,
+                       kWSoft = ffmpc::kWSoft, kNumSlots = ffmpc::kNumSlots;
+  static constexpr int kRowFrictionCone = -1, kRowUnilateral = ffmpc::kRowUnilateral,
+                       kRowFnTrack = ffmpc::kRowFnTrack, kRowYReg = ffmpc::kRowYReg,
+                       kRowWReg = ffmpc::kRowWReg, kRowWSoft = ffmpc::kRowWSoft,
+                       kNumRows = ffmpc::kNumRows;
+};
+template <>
+struct CostLayout<3> {
+  static constexpr int kFrictionCone = kVzDamp + 1, kUnilateral = kVzDamp + 2,
+                       kFnTrack = kVzDamp + 3, kYReg = kVzDamp + 4, kWReg = kVzDamp + 5,
+                       kWSoft = kVzDamp + 6, kNumSlots = kVzDamp + 7;
+  static constexpr int kRowFrictionCone = kRowVzDamp + 6, kRowUnilateral = kRowFrictionCone + 4,
+                       kRowFnTrack = kRowUnilateral + 3, kRowYReg = kRowFnTrack + 3,
+                       kRowWReg = kRowYReg + 21, kRowWSoft = kRowWReg + 7,
+                       kNumRows = kRowWSoft + 7;
+};
+
+// The contact's constants beyond the normal contact's: the point contact's
+// friction coefficient (the cone's rows A f = (-f0 + mu f2, f0 + mu f2,
+// -f1 + mu f2, f1 + mu f2), ocp/action.py::_friction_cone_A).  An empty base
+// for the normal contact, so its layout is unchanged.
+template <typename T, int NC>
+struct ContactConstants {};
+template <typename T>
+struct ContactConstants<T, 3> {
+  T mu;
+};
+
 // Everything the knot reads that is not per problem.  All members are T, so
 // the layout is a flat array; solver/rollout_cuda.py::pack_knot_consts writes
-// the fields in this order (checked against ffmpc_rollout_consts_len()).
-template <typename T>
-struct KnotConstants {
+// the fields in this order (checked against ffmpc_rollout_consts_len()),
+// the point contact's mu first.
+template <typename T, int NC = 1>
+struct KnotConstants : ContactConstants<T, NC> {
   // PandaModel
   T base_rot[3][3];
   T base_pos[3];
@@ -109,12 +160,12 @@ struct KnotConstants {
   T u_ub[kNW];
   T q_soft_ref[14];   // x_ref of the joint-limit barrier residual x - x_ref
   // cost table
-  T slot_scale[kNumSlots];     // weight x dt scale; 0: the term is absent
-  T slot_barrier[kNumSlots];   // 1: barrier activation, 0: weighted quadratic
-  T slot_terminal[kNumSlots];  // 1: the term is part of the terminal cost
-  T row_w[kNumRows];           // weighted quadratic: row weights (quad: 1)
-  T row_lb[kNumRows];          // barrier: bounds
-  T row_ub[kNumRows];
+  T slot_scale[CostLayout<NC>::kNumSlots];     // weight x dt scale; 0: the term is absent
+  T slot_barrier[CostLayout<NC>::kNumSlots];   // 1: barrier activation, 0: weighted quadratic
+  T slot_terminal[CostLayout<NC>::kNumSlots];  // 1: the term is part of the terminal cost
+  T row_w[CostLayout<NC>::kNumRows];           // weighted quadratic: row weights (quad: 1)
+  T row_lb[CostLayout<NC>::kNumRows];          // barrier: bounds
+  T row_ub[CostLayout<NC>::kNumRows];
 };
 
 // ---------------------------------------------------------------------------
@@ -295,8 +346,8 @@ FFMPC_HD void chol_solve(const S (&L)[n][n], const S (&b)[n], S (&x)[n]) {
 // ---------------------------------------------------------------------------
 
 // Joint i's parent->child rotation j_rot[i] @ rot_z(q_i), from cos/sin of q_i.
-template <typename S, typename T>
-FFMPC_HD void joint_rot(const KnotConstants<T>& C, int i, S c, S s, S (&R)[3][3]) {
+template <typename S, typename T, int NC>
+FFMPC_HD void joint_rot(const KnotConstants<T, NC>& C, int i, S c, S s, S (&R)[3][3]) {
   for (int r = 0; r < 3; ++r) {
     const T j0 = C.j_rot[i][r][0], j1 = C.j_rot[i][r][1], j2 = C.j_rot[i][r][2];
     R[r][0] = j0 * c + j1 * s;
@@ -313,8 +364,8 @@ FFMPC_HD void joint_rot(const KnotConstants<T>& C, int i, S c, S s, S (&R)[3][3]
 // at hand:  M += m_i Jv_i^T Jv_i + Jw_i^T (R_i I_i R_i^T) Jw_i with
 // Jv_i[:, j] = axis_j x (c_i - p_j), Jw_i[:, j] = axis_j for j <= i; the
 // armature is added on the diagonal at the end.
-template <typename S, typename T, bool WITH_MASS>
-FFMPC_HD void fk_chain(const KnotConstants<T>& C, const S (&cq)[kNQ],
+template <typename S, typename T, bool WITH_MASS, int NC>
+FFMPC_HD void fk_chain(const KnotConstants<T, NC>& C, const S (&cq)[kNQ],
                        const S (&sq)[kNQ], S (&p)[kNQ][3], S (&axis)[kNQ][3],
                        S (&ee_R)[3][3], S (&ee_p)[3], S (&M)[kNQ][kNQ],
                        S (*R_last)[3] = nullptr) {
@@ -409,14 +460,14 @@ FFMPC_HD void log3(const S (&R)[3][3], S (&out)[3]) {
 
 // A slot counts unless it is absent or, at the terminal knot, not a
 // terminal term.
-template <typename T>
-FFMPC_HD bool slot_on(const KnotConstants<T>& C, int slot, bool terminal) {
+template <typename T, int NC>
+FFMPC_HD bool slot_on(const KnotConstants<T, NC>& C, int slot, bool terminal) {
   return C.slot_scale[slot] != T(0) && !(terminal && C.slot_terminal[slot] == T(0));
 }
 
 // cost += scale * activation(r) for one slot that counts.
-template <typename T, int NR>
-FFMPC_HD void add_term(const KnotConstants<T>& C, int slot, int row0,
+template <typename T, int NR, int NC>
+FFMPC_HD void add_term(const KnotConstants<T, NC>& C, int slot, int row0,
                        bool terminal, const T (&r)[NR], T& cost) {
   if (!slot_on(C, slot, terminal)) return;
   const T s = C.slot_scale[slot];
@@ -514,8 +565,8 @@ __device__ long long g_diff_phase_t0;
 // Returns false, adding nothing, for a row without weight or finite bound:
 // such a row never multiplies its Jacobian row (0 * inf would be NaN).  A NaN
 // residual gives g NaN and h 0, as |NaN| > 0 is false in the plain version.
-template <typename T>
-FFMPC_HD bool act_grad_hess(const KnotConstants<T>& C, int slot, int row, T r, T& g,
+template <typename T, int NC>
+FFMPC_HD bool act_grad_hess(const KnotConstants<T, NC>& C, int slot, int row, T r, T& g,
                             T& h) {
   const T s = C.slot_scale[slot];
   if (C.slot_barrier[slot] != T(0)) {
@@ -545,8 +596,8 @@ FFMPC_HD bool act_grad_hess(const KnotConstants<T>& C, int slot, int row, T r, T
 // A term whose Jacobian is the identity on rows OFF.. of g / h (posture,
 // v_damp, q_soft_limits, tau_reg, tau_soft_limits, y_reg on y; w_reg, w_soft
 // on w): its cost, gradient and diagonal Hessian.
-template <int OFF, typename T, int NR, int NG>
-FFMPC_HD void eye_term(const KnotConstants<T>& C, int slot, int row0, bool terminal,
+template <int OFF, typename T, int NR, int NG, int NC>
+FFMPC_HD void eye_term(const KnotConstants<T, NC>& C, int slot, int row0, bool terminal,
                        const T (&r)[NR], T (&g)[NG], T (&h)[NG], T& cost) {
   static_assert(OFF + NR <= NG, "rows out of range");
   if (!slot_on(C, slot, terminal)) return;
@@ -557,8 +608,8 @@ FFMPC_HD void eye_term(const KnotConstants<T>& C, int slot, int row0, bool termi
 // A term riding a shared Jacobian group's rows (ocp/channel_diff.py fold):
 // its cost, and its gradient and Hessian summed into the group's per-row
 // g / h; `live` marks the rows some term weights.
-template <typename T, int NR>
-FFMPC_HD void group_term(const KnotConstants<T>& C, int slot, int row0, bool terminal,
+template <typename T, int NR, int NC>
+FFMPC_HD void group_term(const KnotConstants<T, NC>& C, int slot, int row0, bool terminal,
                          const T (&r)[NR], T (&g)[NR], T (&h)[NR], bool (&live)[NR],
                          T& cost) {
   if (!slot_on(C, slot, terminal)) return;
@@ -674,6 +725,57 @@ enum RecordField {
 };
 constexpr int kLiveOri = 0, kLiveVel = 3, kLivePos = 9, kLiveF = 12;
 
+// Where the record keeps the fields sized by the contact's width nc, and the
+// columns' outputs (d ori / dq 21, d vel6 / dq 42, df 21 nc: kColumns + 0,
+// + 21, + 63).  The normal contact's are RecordField's.  The point
+// contact's fields do not fit in its place (the record and the Fx tile fill
+// the shared memory of two float32 blocks an SM), so they take the normal
+// contact's column outputs' slots (MinvJt 3 x 7, the force 3, LS the 3 x 3
+// factor packed by rows, GF 3 and HF the force rows' Hessian 3 x 3 packed by
+// rows, with the friction cone's rows folded in, the live flags 9 + 3), and
+// its columns stage their outputs in the knot's Fx tile rows 14-20 (free
+// while the columns run), which are copied after the columns into the
+// slots from kRecArm on (the frames and link values the columns alone read).
+template <int NC>
+struct ContactRecord;
+template <>
+struct ContactRecord<1> {
+  static constexpr int kMinvJt = kRecMinvJt, kForce = kRecForce, kLS = kRecLS, kGF = kRecGF,
+                       kHF = kRecHF, kLive = kRecLive, kDrift = kRecDrift, kAccel = kRecAccel,
+                       kColumns = kRecDori;
+};
+template <>
+struct ContactRecord<3> {
+  static constexpr int kMinvJt = kRecDori, kForce = kMinvJt + 21, kLS = kForce + 3,
+                       kGF = kLS + 6, kHF = kGF + 3, kLive = kHF + 6, kDrift = kRecDrift,
+                       kAccel = kRecDrift + 3, kColumns = kRecArm;
+};
+constexpr int kColumnValues = 21 + 42 + 21 * 3;  // the columns' outputs, point contact
+static_assert(ContactRecord<3>::kLive + 15 <= kRecEeP &&
+                  ContactRecord<3>::kAccel + 7 <= kRecDori &&
+                  ContactRecord<3>::kColumns + kColumnValues <= kRecGOri &&
+                  kRecDori == kRecLx + 21 && kRecDvel == kRecDori + 21 && kRecDf == kRecDvel + 42,
+              "point contact record overlaps");
+
+// A point-contact knot's record and where its columns stage their outputs
+// (stride 1).
+template <typename T, int S>
+struct StagedRecord {
+  T* p;
+  T* stage;
+  FFMPC_HD T& operator[](int i) const { return p[i * S]; }
+};
+
+// Value i of a column's outputs (kColumns' layout): in the record, or staged.
+template <typename T, int S>
+FFMPC_HD T& column_out(const KnotRecord<T, S>& rec, int i) {
+  return rec[kRecDori + i];
+}
+template <typename T, int S>
+FFMPC_HD T& column_out(const StagedRecord<T, S>& rec, int i) {
+  return rec.stage[i];
+}
+
 // Row i, column j <= i of the packed lower triangle.
 FFMPC_HD constexpr int packed_lower(int i, int j) { return i * (i + 1) / 2 + j; }
 
@@ -707,8 +809,8 @@ struct InputRefs {
 // and v are read from the record where they are used, and a from its
 // kRecAccel slots (a = 0 where at_rest), so none is held across the links,
 // and the loops stay rolled.
-template <typename T, typename R>
-FFMPC_HD void rnea_links(const KnotConstants<T>& C, bool at_rest, R rec) {
+template <typename T, typename R, int NC>
+FFMPC_HD void rnea_links(const KnotConstants<T, NC>& C, bool at_rest, R rec) {
   T w[3] = {T(0), T(0), T(0)}, wd[3] = {T(0), T(0), T(0)}, ac[3];
   for (int r = 0; r < 3; ++r)
     ac[r] = C.base_rot[0][r] * (-C.gravity[0]) + C.base_rot[1][r] * (-C.gravity[1]) +
@@ -732,7 +834,7 @@ FFMPC_HD void rnea_links(const KnotConstants<T>& C, bool at_rest, R rec) {
       ac[r] = Rm[0][r] * arg[0] + Rm[1][r] * arg[1] + Rm[2][r] * arg[2];
     wd[0] = Rt_wd[0] + w_p[1] * qd;
     wd[1] = Rt_wd[1] - w_p[0] * qd;
-    wd[2] = Rt_wd[2] + (at_rest ? T(0) : rec[kRecAccel + i]);
+    wd[2] = Rt_wd[2] + (at_rest ? T(0) : rec[ContactRecord<NC>::kAccel + i]);
     w[0] = w_p[0];
     w[1] = w_p[1];
     w[2] = w_p[2] + qd;
@@ -789,16 +891,18 @@ FFMPC_HD void rnea_links(const KnotConstants<T>& C, bool at_rest, R rec) {
   }
 }
 
-// The tangent of rnea(q, v, acc), and with SURFACE of the tool's z
-// acceleration, along one direction, from the link values rnea_links left:
-// the q-direction d (e < 0; dc, ds the tangents of cos q_d and sin q_d, dR6z
-// that of the last link's rotation's z row) or the v-direction e (d < 0).
+// The tangent of rnea(q, v, acc), and with SURFACE of the tool's
+// acceleration's contact rows (z for the normal contact, all three for the
+// point contact), along one direction, from the link values rnea_links left:
+// the q-direction d (e < 0; dc, ds the tangents of cos q_d and sin q_d, dR6
+// that of the last link's rotation's contact rows) or the v-direction e
+// (d < 0).
 // Only tangents are formed (the dual-number pass of the first version
 // recomputed the primal values in each of the 14 passes); a link before the
 // direction's joint has none of its own, so its local terms are skipped.
-template <typename T, bool SURFACE, typename R>
-FFMPC_HD void rnea_tangent(const KnotConstants<T>& C, R rec, int d, T dc, T ds, int e,
-                           const T (&dR6z)[3], T (&dtau)[kNQ], T& deacc_z) {
+template <typename T, bool SURFACE, typename R, int NC>
+FFMPC_HD void rnea_tangent(const KnotConstants<T, NC>& C, R rec, int d, T dc, T ds, int e,
+                           const T (&dR6)[NC][3], T (&dtau)[kNQ], T (&deacc)[NC]) {
   const int first = d >= 0 ? d : e;
   T dw[3] = {T(0), T(0), T(0)}, dwd[3] = {T(0), T(0), T(0)}, dac[3] = {T(0), T(0), T(0)};
   T dws[kNQ][3], dwds[kNQ][3], dacs[kNQ][3];
@@ -886,13 +990,21 @@ FFMPC_HD void rnea_tangent(const KnotConstants<T>& C, R rec, int d, T dc, T ds, 
     cross3<T>(dw, t, dt1);
     cross3<T>(dw, t1, dt2);
     cross3<T>(w, dt1, t2a);
-    T z = T(0);
-    for (int r = 0; r < 3; ++r) {
-      a_ee[r] = ac[r] + t0[r] + t2[r];
-      const T da = dac[r] + dt0[r] + (dt2[r] + t2a[r]);
-      z = z + (dR6z[r] * a_ee[r] + rec[kRecR6 + 6 + r] * da);
+    if constexpr (NC == 1) {
+      T z = T(0);
+      for (int r = 0; r < 3; ++r) {
+        a_ee[r] = ac[r] + t0[r] + t2[r];
+        const T da = dac[r] + dt0[r] + (dt2[r] + t2a[r]);
+        z = z + (dR6[0][r] * a_ee[r] + rec[kRecR6 + 6 + r] * da);
+      }
+      deacc[0] = z;
+    } else {
+      // the point contact's three rows: the tangent of the tool's
+      // acceleration in the last link's frame alone (dR6 unread), which the
+      // caller turns into the world's rows (tool_acc_rows), so no rotation's
+      // tangent is held through the sweep
+      for (int r = 0; r < 3; ++r) deacc[r] = dac[r] + dt0[r] + (dt2[r] + t2a[r]);
     }
-    deacc_z = z;
   }
   T df[3] = {T(0), T(0), T(0)}, dn[3] = {T(0), T(0), T(0)};
   FFMPC_UNROLL
@@ -956,6 +1068,40 @@ FFMPC_HD void rnea_tangent(const KnotConstants<T>& C, R rec, int d, T dc, T ds, 
   }
 }
 
+// The point contact's h2 rows' acceleration part from rnea_tangent's
+// tangent da of the tool's acceleration in the last link's frame: the rows
+// of d(R6 a_ee + g) = dR6 a_ee + R6 da, with dR6 = [a_d]x R6 for the
+// q-direction d (d < 0: the v-direction, dR6 = 0).
+template <typename T, typename R, int NC>
+FFMPC_HD void tool_acc_rows(const KnotConstants<T, NC>& C, R rec, int d, const T (&da)[3],
+                            T (&deacc)[3]) {
+  T R6[3][3];
+  for (int k = 0; k < 9; ++k) R6[k / 3][k % 3] = rec[kRecR6 + k];
+  T out[3];
+  for (int k = 0; k < 3; ++k)
+    out[k] = (R6[k][0] * da[0] + R6[k][1] * da[1]) + R6[k][2] * da[2];
+  if (d >= 0) {
+    T w[3], wd[3], t1[3], t0[3], t2[3], a_ee[3], ad[3];
+    const T t[3] = {C.ee_pos[0], C.ee_pos[1], C.ee_pos[2]};
+    for (int r = 0; r < 3; ++r) {
+      w[r] = rec[kRecW + 6 * 3 + r];
+      wd[r] = rec[kRecWd + 6 * 3 + r];
+      ad[r] = rec[kRecAxis + d * 3 + r];
+    }
+    cross3<T>(w, t, t1);
+    cross3<T>(wd, t, t0);
+    cross3<T>(w, t1, t2);
+    for (int r = 0; r < 3; ++r) a_ee[r] = rec[kRecAc + 6 * 3 + r] + t0[r] + t2[r];
+    // ([a_d]x R6) a_ee = a_d x (R6 a_ee)
+    T Ra[3], dRa[3];
+    for (int k = 0; k < 3; ++k)
+      Ra[k] = (R6[k][0] * a_ee[0] + R6[k][1] * a_ee[1]) + R6[k][2] * a_ee[2];
+    cross3<T>(ad, Ra, dRa);
+    for (int k = 0; k < 3; ++k) out[k] = out[k] + dRa[k];
+  }
+  for (int k = 0; k < 3; ++k) deacc[k] = out[k];
+}
+
 // The primal part of one knot, in out-of-line stages that hand their
 // results on through the record, so no stage holds another's arrays in
 // registers: the link frames and the mass matrix's factor; the bias; the
@@ -965,8 +1111,8 @@ FFMPC_HD void rnea_tangent(const KnotConstants<T>& C, R rec, int d, T dc, T ds, 
 
 // Stage 1: q, v from the state ys; FK with mass matrix, the frame Jacobian
 // and the Cholesky factor of M into the record.
-template <typename T, typename R>
-FFMPC_HD_OUTLINED void primal_frames(const KnotConstants<T>& C, R in, R rec) {
+template <typename T, typename R, int NC>
+FFMPC_HD_OUTLINED void primal_frames(const KnotConstants<T, NC>& C, R in, R rec) {
   T cq[kNQ], sq[kNQ];
   for (int i = 0; i < kNQ; ++i) {
     const T q = in[kInY + i];
@@ -1005,9 +1151,9 @@ FFMPC_HD_OUTLINED void primal_frames(const KnotConstants<T>& C, R in, R rec) {
 // in registers (stage 4 overwrites them with the states at the
 // acceleration); b_i = n_i,z + armature_i 0 + damping_i v_i and the drift
 // gamma = (R6 (ac + wd x t + w x (w x t)) + g)_z at the last link, as rnea
-// with EE_ACC forms them.
-template <typename T, bool SURFACE, typename R>
-FFMPC_HD_OUTLINED void primal_bias(const KnotConstants<T>& C, R rec) {
+// with EE_ACC forms them (the point contact: all three rows).
+template <typename T, bool SURFACE, typename R, int NC>
+FFMPC_HD_OUTLINED void primal_bias(const KnotConstants<T, NC>& C, R rec) {
   rnea_links<T>(C, true, rec);
   for (int i = 0; i < kNQ; ++i)
     rec[kRecBias + i] =
@@ -1025,64 +1171,133 @@ FFMPC_HD_OUTLINED void primal_bias(const KnotConstants<T>& C, R rec) {
     cross3<T>(w, t1, t2);
     T a_ee[3];
     for (int r = 0; r < 3; ++r) a_ee[r] = rec[kRecAc + 6 * 3 + r] + t0[r] + t2[r];
+    if constexpr (NC == 3) {
+      for (int k = 0; k < 3; ++k)
+        rec[ContactRecord<3>::kDrift + k] = rec[kRecR6 + 3 * k] * a_ee[0] +
+                                            rec[kRecR6 + 3 * k + 1] * a_ee[1] +
+                                            rec[kRecR6 + 3 * k + 2] * a_ee[2] + C.gravity[k];
+      return;
+    }
     drift = rec[kRecR6 + 6] * a_ee[0] + rec[kRecR6 + 7] * a_ee[1] + rec[kRecR6 + 8] * a_ee[2] +
             C.gravity[2];
+  }
+  if constexpr (NC == 3) {
+    for (int k = 0; k < 3; ++k) rec[ContactRecord<3>::kDrift + k] = T(0);
+    return;
   }
   rec[kRecDrift] = drift;
 }
 
 // Stage 3: the damped contact solve and the acceleration (into the Lx
-// slots, kRecAccel).
-template <typename T, bool SURFACE, typename R>
-FFMPC_HD_OUTLINED void primal_contact(const KnotConstants<T>& C, R in, R rec) {
-  const InputRefs<T, R> ref{in};
-  T L[kNQ][kNQ], Minv_tau[kNQ], acc[kNQ];
-  for (int i = 0; i < kNQ; ++i)
-    for (int j = 0; j < kNQ; ++j) L[i][j] = j <= i ? rec[kRecL + packed_lower(i, j)] : T(0);
-  {
-    T rhs[kNQ];
-    for (int i = 0; i < kNQ; ++i) rhs[i] = in[kInY + 14 + i] - rec[kRecBias + i];
-    chol_solve<T, kNQ>(L, rhs, Minv_tau);
-  }
-  T force = T(0), LS = T(1), Minv_Jt[kNQ];
-  if constexpr (SURFACE) {
-    T Jc[kNQ];
-    for (int j = 0; j < kNQ; ++j) Jc[j] = rec[kRecJp + 2 * kNQ + j];
-    chol_solve<T, kNQ>(L, Jc, Minv_Jt);
-    T vel_c = T(0), S_ = T(0), JMt = T(0);
-    for (int j = 0; j < kNQ; ++j) {
-      vel_c = vel_c + Jc[j] * rec[kRecV + j];
-      S_ = S_ + Jc[j] * Minv_Jt[j];
-      JMt = JMt + Jc[j] * Minv_tau[j];
+// slots, kRecAccel).  The point contact's: M^-1 Jc^T by three solves, the
+// damped Schur complement S = Jc M^-1 Jc^T + c I (its lower triangle) and its
+// 3 x 3 Cholesky factor, the force S^-1 (a_des - Jc M^-1 (tau - b)), in the
+// operations of core/dynamics.py::contact_dynamics_derivs.
+template <typename T, bool SURFACE, typename R, int NC>
+FFMPC_HD_OUTLINED void primal_contact(const KnotConstants<T, NC>& C, R in, R rec) {
+  if constexpr (NC == 1) {
+    const InputRefs<T, R> ref{in};
+    T L[kNQ][kNQ], Minv_tau[kNQ], acc[kNQ];
+    for (int i = 0; i < kNQ; ++i)
+      for (int j = 0; j < kNQ; ++j) L[i][j] = j <= i ? rec[kRecL + packed_lower(i, j)] : T(0);
+    {
+      T rhs[kNQ];
+      for (int i = 0; i < kNQ; ++i) rhs[i] = in[kInY + 14 + i] - rec[kRecBias + i];
+      chol_solve<T, kNQ>(L, rhs, Minv_tau);
     }
-    S_ = S_ + C.damping_c;
-    const T gap = rec[kRecEeP + 2] - (ref.at(2) - C.z_press);
-    const T a_des = (-rec[kRecDrift] - C.kp * gap) - C.kd * vel_c;
-    LS = S_ / sqrt_(S_);  // 1x1 Cholesky factor, as chol_factor gives it
-    force = ((a_des - JMt) / LS) / LS;
-    for (int i = 0; i < kNQ; ++i) acc[i] = Minv_tau[i] + Minv_Jt[i] * force;
-  } else {
+    T force = T(0), LS = T(1), Minv_Jt[kNQ];
+    if constexpr (SURFACE) {
+      T Jc[kNQ];
+      for (int j = 0; j < kNQ; ++j) Jc[j] = rec[kRecJp + 2 * kNQ + j];
+      chol_solve<T, kNQ>(L, Jc, Minv_Jt);
+      T vel_c = T(0), S_ = T(0), JMt = T(0);
+      for (int j = 0; j < kNQ; ++j) {
+        vel_c = vel_c + Jc[j] * rec[kRecV + j];
+        S_ = S_ + Jc[j] * Minv_Jt[j];
+        JMt = JMt + Jc[j] * Minv_tau[j];
+      }
+      S_ = S_ + C.damping_c;
+      const T gap = rec[kRecEeP + 2] - (ref.at(2) - C.z_press);
+      const T a_des = (-rec[kRecDrift] - C.kp * gap) - C.kd * vel_c;
+      LS = S_ / sqrt_(S_);  // 1x1 Cholesky factor, as chol_factor gives it
+      force = ((a_des - JMt) / LS) / LS;
+      for (int i = 0; i < kNQ; ++i) acc[i] = Minv_tau[i] + Minv_Jt[i] * force;
+    } else {
+      for (int i = 0; i < kNQ; ++i) {
+        acc[i] = Minv_tau[i];
+        Minv_Jt[i] = T(0);
+      }
+    }
     for (int i = 0; i < kNQ; ++i) {
-      acc[i] = Minv_tau[i];
-      Minv_Jt[i] = T(0);
+      rec[kRecMinvJt + i] = Minv_Jt[i];
+      rec[kRecAccel + i] = acc[i];
+    }
+    rec[kRecForce] = force;
+    rec[kRecLS] = LS;
+
+  } else {
+    using CR = ContactRecord<3>;
+    const InputRefs<T, R> ref{in};
+    T L[kNQ][kNQ], Minv_tau[kNQ];
+    for (int i = 0; i < kNQ; ++i)
+      for (int j = 0; j < kNQ; ++j) L[i][j] = j <= i ? rec[kRecL + packed_lower(i, j)] : T(0);
+    {
+      T rhs[kNQ];
+      for (int i = 0; i < kNQ; ++i) rhs[i] = in[kInY + 14 + i] - rec[kRecBias + i];
+      chol_solve<T, kNQ>(L, rhs, Minv_tau);
+    }
+    T force[3] = {T(0), T(0), T(0)};
+    T LS[3][3] = {{T(1), T(0), T(0)}, {T(0), T(1), T(0)}, {T(0), T(0), T(1)}};
+    if constexpr (SURFACE) {
+      T srhs[3], S[3][3];
+      for (int r = 0; r < 3; ++r) {
+        T Jc[kNQ], x[kNQ], vel_c = T(0), JMt = T(0);
+        for (int j = 0; j < kNQ; ++j) Jc[j] = rec[kRecJp + r * kNQ + j];
+        chol_solve<T, kNQ>(L, Jc, x);
+        for (int j = 0; j < kNQ; ++j) {
+          rec[CR::kMinvJt + r * kNQ + j] = x[j];
+          vel_c = vel_c + Jc[j] * rec[kRecV + j];
+          JMt = JMt + Jc[j] * Minv_tau[j];
+        }
+        const T gap = rec[kRecEeP + r] - (r < 2 ? ref.at(r) : ref.at(2) - C.z_press);
+        const T a_des = (-rec[CR::kDrift + r] - C.kp * gap) - C.kd * vel_c;
+        srhs[r] = a_des - JMt;
+      }
+      for (int i = 0; i < 3; ++i)
+        for (int j = 0; j <= i; ++j) {
+          T sij = T(0);
+          for (int k = 0; k < kNQ; ++k)
+            sij = sij + rec[kRecJp + i * kNQ + k] * rec[CR::kMinvJt + j * kNQ + k];
+          S[i][j] = (i == j) ? sij + C.damping_c : sij;
+          S[j][i] = S[i][j];
+        }
+      chol_factor<T, 3>(S, LS);
+      chol_solve<T, 3>(LS, srhs, force);
+    } else {
+      for (int e = 0; e < 3 * kNQ; ++e) rec[CR::kMinvJt + e] = T(0);
+    }
+    for (int i = 0; i < kNQ; ++i) {
+      T acc = Minv_tau[i];
+      if constexpr (SURFACE)
+        acc = acc + ((rec[CR::kMinvJt + i] * force[0] + rec[CR::kMinvJt + kNQ + i] * force[1]) +
+                     rec[CR::kMinvJt + 2 * kNQ + i] * force[2]);
+      rec[CR::kAccel + i] = acc;
+    }
+    for (int r = 0; r < 3; ++r) {
+      rec[CR::kForce + r] = force[r];
+      for (int c = 0; c <= r; ++c) rec[CR::kLS + packed_lower(r, c)] = LS[r][c];
     }
   }
-  for (int i = 0; i < kNQ; ++i) {
-    rec[kRecMinvJt + i] = Minv_Jt[i];
-    rec[kRecAccel + i] = acc[i];
-  }
-  rec[kRecForce] = force;
-  rec[kRecLS] = LS;
 }
 
 // Stage 4: RNEA's link states at the acceleration, and xnext (semi-implicit
 // Euler, the torque filter) into the Lx slots, kRecXnext (21; the bias,
 // drift and acceleration are spent by then).
-template <typename T, typename R>
-FFMPC_HD_OUTLINED void primal_links(const KnotConstants<T>& C, R in, R rec) {
+template <typename T, typename R, int NC>
+FFMPC_HD_OUTLINED void primal_links(const KnotConstants<T, NC>& C, R in, R rec) {
   rnea_links<T>(C, false, rec);
   T acc[kNQ];  // read whole first: xnext's slots overlap the acceleration's
-  for (int i = 0; i < kNQ; ++i) acc[i] = rec[kRecAccel + i];
+  for (int i = 0; i < kNQ; ++i) acc[i] = rec[ContactRecord<NC>::kAccel + i];
   for (int i = 0; i < kNQ; ++i) {
     const T vn = rec[kRecV + i] + C.dt * acc[i];
     rec[kRecXnext + 7 + i] = vn;
@@ -1097,8 +1312,8 @@ FFMPC_HD_OUTLINED void primal_links(const KnotConstants<T>& C, R in, R rec) {
 // tau_soft_limits, y_reg; on w: w_reg, w_soft): their cost into the record,
 // and gy, hy, gu, hu.  They read the inputs only, and also copy the
 // desired rotation into the record for the q-columns.
-template <typename T, typename R>
-FFMPC_HD_OUTLINED void residuals_identity(const KnotConstants<T>& C, R in, bool terminal,
+template <typename T, typename R, int NC>
+FFMPC_HD_OUTLINED void residuals_identity(const KnotConstants<T, NC>& C, R in, bool terminal,
                                           R rec) {
   const InputRefs<T, R> ref{in};
   T y[kNY], cost = T(0), gy[kNY], hy[kNY];
@@ -1133,7 +1348,7 @@ FFMPC_HD_OUTLINED void residuals_identity(const KnotConstants<T>& C, R in, bool 
   {
     T r[kNY];
     for (int i = 0; i < kNY; ++i) r[i] = y[i] - ref.at(36 + i);
-    eye_term<0>(C, kYReg, kRowYReg, terminal, r, gy, hy, cost);
+    eye_term<0>(C, CostLayout<NC>::kYReg, CostLayout<NC>::kRowYReg, terminal, r, gy, hy, cost);
   }
   for (int i = 0; i < kNY; ++i) {
     rec[kRecGy + i] = gy[i];
@@ -1145,8 +1360,8 @@ FFMPC_HD_OUTLINED void residuals_identity(const KnotConstants<T>& C, R in, bool 
     gu[j] = hu[j] = T(0);
   }
   if (!terminal) {
-    eye_term<0>(C, kWReg, kRowWReg, false, w, gu, hu, cost);
-    eye_term<0>(C, kWSoft, kRowWSoft, false, w, gu, hu, cost);
+    eye_term<0>(C, CostLayout<NC>::kWReg, CostLayout<NC>::kRowWReg, false, w, gu, hu, cost);
+    eye_term<0>(C, CostLayout<NC>::kWSoft, CostLayout<NC>::kRowWSoft, false, w, gu, hu, cost);
   }
   for (int j = 0; j < kNW; ++j) {
     rec[kRecGu + j] = gu[j];
@@ -1159,9 +1374,13 @@ FFMPC_HD_OUTLINED void residuals_identity(const KnotConstants<T>& C, R in, bool 
 // Stage 6: the terms riding a shared Jacobian group's rows (orientation,
 // frame velocity, position, force): their cost added to the record's, and
 // the groups' gradients, Hessians and live rows.  They read stage 1's frames
-// and stage 3's force.
-template <typename T, bool SURFACE, typename R>
-FFMPC_HD_OUTLINED void residuals_groups(const KnotConstants<T>& C, R in, bool terminal, R rec) {
+// and stage 3's force.  The point contact's friction cone rides the force's
+// rows through A (its Jacobian is A df, ocp/channel_diff.py): its gradient
+// and Hessian are folded into the force rows' as A^T g and A^T diag(h) A, so
+// the force rows' Hessian is a full 3 x 3, and a force row is live where a
+// live cone row reads it.
+template <typename T, bool SURFACE, typename R, int NC>
+FFMPC_HD_OUTLINED void residuals_groups(const KnotConstants<T, NC>& C, R in, bool terminal, R rec) {
   const InputRefs<T, R> ref{in};
   T ee_p[3], vel6[6], ori[3];
   for (int a = 0; a < 3; ++a) ee_p[a] = rec[kRecEeP + a];
@@ -1199,7 +1418,6 @@ FFMPC_HD_OUTLINED void residuals_groups(const KnotConstants<T>& C, R in, bool te
     T r[3] = {ee_p[0] - ref.at(0), ee_p[1] - ref.at(1), ee_p[2] - ref.at(2)};
     group_term<T, 3>(C, kEePos, kRowEePos, terminal, r, g_pos, h_pos, l_pos, cost);
   } else {
-    const T force = rec[kRecForce];
     {
       T r[3] = {ee_p[0] - ref.at(0), ee_p[1] - ref.at(1), ee_p[2] - ref.at(2)};
       group_term<T, 3>(C, kEeXy, kRowEeXy, terminal, r, g_pos, h_pos, l_pos, cost);
@@ -1214,39 +1432,94 @@ FFMPC_HD_OUTLINED void residuals_groups(const KnotConstants<T>& C, R in, bool te
       group_term<T, 3>(C, kPlaneZ, kRowPlaneZ, terminal, r, g_pos, h_pos, l_pos, cost);
     }
     group_term<T, 6>(C, kVzDamp, kRowVzDamp, terminal, vel6, g_vel, h_vel, l_vel, cost);
-    {
-      T r[1] = {force};
-      group_term<T, 1>(C, kUnilateral, kRowUnilateral, terminal, r, g_f, h_f, l_f, cost);
-    }
-    {
-      T r[1] = {force - C.fn_des};
-      group_term<T, 1>(C, kFnTrack, kRowFnTrack, terminal, r, g_f, h_f, l_f, cost);
+    if constexpr (NC == 1) {
+      const T force = rec[kRecForce];
+      {
+        T r[1] = {force};
+        group_term<T, 1>(C, kUnilateral, kRowUnilateral, terminal, r, g_f, h_f, l_f, cost);
+      }
+      {
+        T r[1] = {force - C.fn_des};
+        group_term<T, 1>(C, kFnTrack, kRowFnTrack, terminal, r, g_f, h_f, l_f, cost);
+      }
+    } else {
+      using CL = CostLayout<3>;
+      const T f[3] = {rec[ContactRecord<3>::kForce], rec[ContactRecord<3>::kForce + 1],
+                      rec[ContactRecord<3>::kForce + 2]};
+      // the cone's rows A f; A's first two columns are -1, 1 on f0 (rows
+      // 0, 1) and on f1 (rows 2, 3), its last mu
+      const T mu_f2 = C.mu * f[2];
+      T rc[4] = {-f[0] + mu_f2, f[0] + mu_f2, -f[1] + mu_f2, f[1] + mu_f2};
+      T g_c[4] = {T(0), T(0), T(0), T(0)}, h_c[4] = {T(0), T(0), T(0), T(0)};
+      bool l_c[4] = {false, false, false, false};
+      group_term<T, 4>(C, CL::kFrictionCone, CL::kRowFrictionCone, terminal, rc, g_c, h_c, l_c,
+                       cost);
+      T g3[3] = {T(0), T(0), T(0)}, h3[3] = {T(0), T(0), T(0)};
+      bool l3[3] = {false, false, false};
+      group_term<T, 3>(C, CL::kUnilateral, CL::kRowUnilateral, terminal, f, g3, h3, l3, cost);
+      {
+        T r[3] = {f[0], f[1], f[2] - C.fn_des};
+        group_term<T, 3>(C, CL::kFnTrack, CL::kRowFnTrack, terminal, r, g3, h3, l3, cost);
+      }
+      // A's rows as (column of f it reads with +-1, that sign)
+      T HF[3][3] = {{h3[0], T(0), T(0)}, {T(0), h3[1], T(0)}, {T(0), T(0), h3[2]}};
+      for (int k = 0; k < 4; ++k) {
+        const int a = k < 2 ? 0 : 1;
+        const T sg = (k % 2 == 0) ? T(-1) : T(1);
+        g3[a] = g3[a] + sg * g_c[k];
+        g3[2] = g3[2] + C.mu * g_c[k];
+        HF[a][a] = HF[a][a] + h_c[k];
+        HF[a][2] = HF[a][2] + sg * C.mu * h_c[k];
+        HF[2][2] = HF[2][2] + C.mu * C.mu * h_c[k];
+        if (l_c[k]) {
+          l3[a] = true;
+          if (C.mu != T(0)) l3[2] = true;
+        }
+      }
+      HF[2][0] = HF[0][2];
+      HF[2][1] = HF[1][2];
+      using CR = ContactRecord<3>;
+      for (int r = 0; r < 3; ++r) {
+        rec[CR::kGF + r] = g3[r];
+        rec[CR::kLive + kLiveF + r] = l3[r] ? T(1) : T(0);
+        for (int c = 0; c <= r; ++c) rec[CR::kHF + packed_lower(r, c)] = HF[r][c];
+      }
     }
   }
+  using CR = ContactRecord<NC>;
   rec[kRecCost] = cost;
+  if constexpr (NC == 3 && !SURFACE) {
+    for (int r = 0; r < 3; ++r) {
+      rec[CR::kGF + r] = T(0);
+      rec[CR::kLive + kLiveF + r] = T(0);
+      for (int c = 0; c <= r; ++c) rec[CR::kHF + packed_lower(r, c)] = T(0);
+    }
+  }
   for (int r = 0; r < 3; ++r) {
     rec[kRecGOri + r] = g_ori[r];
     rec[kRecHOri + r] = h_ori[r];
     rec[kRecGPos + r] = g_pos[r];
     rec[kRecHPos + r] = h_pos[r];
-    rec[kRecLive + kLiveOri + r] = l_ori[r] ? T(1) : T(0);
-    rec[kRecLive + kLivePos + r] = l_pos[r] ? T(1) : T(0);
+    rec[CR::kLive + kLiveOri + r] = l_ori[r] ? T(1) : T(0);
+    rec[CR::kLive + kLivePos + r] = l_pos[r] ? T(1) : T(0);
   }
   for (int r = 0; r < 6; ++r) {
     rec[kRecGVel + r] = g_vel[r];
     rec[kRecHVel + r] = h_vel[r];
-    rec[kRecLive + kLiveVel + r] = l_vel[r] ? T(1) : T(0);
+    rec[CR::kLive + kLiveVel + r] = l_vel[r] ? T(1) : T(0);
   }
-  rec[kRecGF] = g_f[0];
-  rec[kRecHF] = h_f[0];
-  rec[kRecLive + kLiveF] = l_f[0] ? T(1) : T(0);
+  if constexpr (NC == 1) {
+    rec[kRecGF] = g_f[0];
+    rec[kRecHF] = h_f[0];
+    rec[kRecLive + kLiveF] = l_f[0] ? T(1) : T(0);
+  }
 }
 
 // The primal part of one knot from its staged inputs `in`, its stages in
 // turn (the kernel runs the residual stages on another warp, beside the
 // others; see csrc/knot_diff.cu).  Leaves xnext in the record's Lx slots.
-template <typename T, bool SURFACE, typename R>
-FFMPC_HD void diff_primal(const KnotConstants<T>& C, R in, bool terminal, R rec) {
+template <typename T, bool SURFACE, typename R, int NC>
+FFMPC_HD void diff_primal(const KnotConstants<T, NC>& C, R in, bool terminal, R rec) {
   primal_frames<T>(C, in, rec);
   primal_bias<T, SURFACE>(C, rec);
   primal_contact<T, SURFACE>(C, in, rec);
@@ -1256,14 +1529,18 @@ FFMPC_HD void diff_primal(const KnotConstants<T>& C, R in, bool terminal, R rec)
 }
 
 // Column c (0..20) of one knot: its implicit-function column, its df into
-// the record (and, for a q-column, d ori / dq and d vel6 / dq), and, where fx
-// is given (running knots), column c of the knot's Fx rows 0-13 at
-// fx[row * 21 + c].  The direction c is data, not a template argument, and
-// every branch on it is uniform over the threads that run the same column
-// of different knots.
-template <typename T, bool SURFACE, typename R>
-FFMPC_HD_OUTLINED void diff_column(const KnotConstants<T>& C, R rec, int c, T* fx) {
-  T g1[kNQ], h2 = T(0);
+// the columns' outputs (and, for a q-column, d ori / dq and d vel6 / dq:
+// column_out, in the record or staged), and, where fx is given (running
+// knots), column c of the knot's Fx rows 0-13 at fx[row * 21 + c].  The
+// direction c is data, not a template argument, and every branch on it is
+// uniform over the threads that run the same column of different knots.
+// The point contact's column: g1 = dtau - dJc^T f and nc = 3 rows h2 from
+// the same sweep, df = LS^-1 (Jc M^-1 g1 - h2) with the 3 x 3 factor
+// (core/scalar_chain.py::contact_dynamics_derivs_chain).
+template <typename T, bool SURFACE, typename R, int NC>
+FFMPC_HD_OUTLINED void diff_column(const KnotConstants<T, NC>& C, R rec, int c, T* fx) {
+  T g1[kNQ], h2[NC];
+  for (int k = 0; k < NC; ++k) h2[k] = T(0);
   if (c < kNQ) {
     // q-direction d.  The tangents of the link frames have a closed form:
     // joint d turns every frame after it about its axis a_d through its
@@ -1278,6 +1555,10 @@ FFMPC_HD_OUTLINED void diff_column(const KnotConstants<T>& C, R rec, int c, T* f
       ad[r] = rec[kRecAxis + d * 3 + r];
       ud[r] = rec[kRecJp + r * kNQ + d];  // a_d x r_d, the tool origin's tangent
     }
+    // jz: the normal contact's dJc (row z); the point contact's dJc^T f
+    T f3[3] = {T(0), T(0), T(0)};
+    if constexpr (NC == 3 && SURFACE)
+      for (int r = 0; r < 3; ++r) f3[r] = rec[ContactRecord<3>::kForce + r];
     T jz[kNQ], lin[3] = {T(0), T(0), T(0)}, ang[3] = {T(0), T(0), T(0)}, jv = T(0);
     for (int j = 0; j < kNQ; ++j) {
       T aj[3], dJ[3];
@@ -1298,12 +1579,16 @@ FFMPC_HD_OUTLINED void diff_column(const KnotConstants<T>& C, R rec, int c, T* f
         }
       }
       for (int r = 0; r < 3; ++r) lin[r] = lin[r] + dJ[r] * vj;
-      jz[j] = dJ[2];
-      jv = jv + dJ[2] * vj;
+      if constexpr (NC == 1) {
+        jz[j] = dJ[2];
+        jv = jv + dJ[2] * vj;
+      } else {
+        jz[j] = (dJ[0] * f3[0] + dJ[1] * f3[1]) + dJ[2] * f3[2];
+      }
     }
     for (int r = 0; r < 3; ++r) {
-      rec[kRecDvel + r * kNQ + c] = lin[r];
-      rec[kRecDvel + (3 + r) * kNQ + c] = ang[r];
+      column_out(rec, 21 + r * kNQ + c) = lin[r];
+      column_out(rec, 21 + (3 + r) * kNQ + c) = ang[r];
     }
     {
       // orientation error log3(R_des^T ee_R) along d ee_R = [a_d]x ee_R
@@ -1325,36 +1610,93 @@ FFMPC_HD_OUTLINED void diff_column(const KnotConstants<T>& C, R rec, int c, T* f
                                r0 * dR[0][j] + r1 * dR[1][j] + r2 * dR[2][j]);
         }
       log3<Dual<T>>(Rrel, od);
-      for (int r = 0; r < 3; ++r) rec[kRecDori + r * kNQ + c] = od[r].d;
+      for (int r = 0; r < 3; ++r) column_out(rec, r * kNQ + c) = od[r].d;
     }
-    // RNEA's tangent at the fixed acceleration, cos' = -sin, sin' = cos
-    T dR6z[3], dtau[kNQ], deacc_z = T(0);
-    for (int k = 0; k < 3; ++k)
-      dR6z[k] = ad[0] * rec[kRecR6 + 3 + k] - ad[1] * rec[kRecR6 + k];
-    rnea_tangent<T, SURFACE>(C, rec, d, -rec[kRecSq + d], rec[kRecCq + d], -1, dR6z, dtau,
-                             deacc_z);
-    const T force = rec[kRecForce];
-    for (int i = 0; i < kNQ; ++i) g1[i] = SURFACE ? dtau[i] - jz[i] * force : dtau[i];
-    if constexpr (SURFACE) h2 = (deacc_z + C.kp * ud[2]) + C.kd * jv;
+    // RNEA's tangent at the fixed acceleration, cos' = -sin, sin' = cos;
+    // dR6 = [a_d]x R6's z row (the normal contact; the point contact's rows
+    // are formed after the sweep, tool_acc_rows)
+    T dR6[NC][3], dtau[kNQ], deacc[NC];
+    for (int k = 0; k < NC; ++k) {
+      deacc[k] = T(0);
+      for (int r = 0; r < 3; ++r) dR6[k][r] = T(0);
+    }
+    if constexpr (NC == 1)
+      for (int k = 0; k < 3; ++k)
+        dR6[0][k] = ad[0] * rec[kRecR6 + 3 + k] - ad[1] * rec[kRecR6 + k];
+    // the point contact's h2 rows' position and velocity parts, kp dgap + kd dJc v
+    T hq[NC];
+    if constexpr (NC == 3)
+      for (int r = 0; r < 3; ++r) hq[r] = C.kp * ud[r] + C.kd * lin[r];
+    rnea_tangent<T, SURFACE>(C, rec, d, -rec[kRecSq + d], rec[kRecCq + d], -1, dR6, dtau,
+                             deacc);
+    if constexpr (NC == 1) {
+      const T force = rec[kRecForce];
+      for (int i = 0; i < kNQ; ++i) g1[i] = SURFACE ? dtau[i] - jz[i] * force : dtau[i];
+      if constexpr (SURFACE) h2[0] = (deacc[0] + C.kp * ud[2]) + C.kd * jv;
+    } else {
+      for (int i = 0; i < kNQ; ++i) g1[i] = SURFACE ? dtau[i] - jz[i] : dtau[i];
+      if constexpr (SURFACE) {
+        T da[3] = {deacc[0], deacc[1], deacc[2]};
+        tool_acc_rows<T>(C, rec, d, da, deacc);
+        for (int r = 0; r < 3; ++r) h2[r] = deacc[r] + hq[r];
+      }
+    }
   } else if (c < 2 * kNQ) {
     // v-direction e: RNEA's tangent alone
     const int e = c - kNQ;
-    const T zero3[3] = {T(0), T(0), T(0)};
-    T deacc_z = T(0);
-    rnea_tangent<T, SURFACE>(C, rec, -1, T(0), T(0), e, zero3, g1, deacc_z);
-    if constexpr (SURFACE) h2 = deacc_z + C.kd * rec[kRecJp + 2 * kNQ + e];
+    T zero3[NC][3], deacc[NC];
+    for (int k = 0; k < NC; ++k) {
+      deacc[k] = T(0);
+      for (int r = 0; r < 3; ++r) zero3[k][r] = T(0);
+    }
+    rnea_tangent<T, SURFACE>(C, rec, -1, T(0), T(0), e, zero3, g1, deacc);
+    if constexpr (SURFACE) {
+      if constexpr (NC == 3) {
+        T da[3] = {deacc[0], deacc[1], deacc[2]};
+        tool_acc_rows<T>(C, rec, -1, da, deacc);
+      }
+      for (int k = 0; k < NC; ++k)
+        h2[k] = deacc[k] + C.kd * rec[kRecJp + (NC == 1 ? 2 : k) * kNQ + e];
+    }
   } else {
     // control column j: the torque enters the RNEA rows as -e_j
     for (int i = 0; i < kNQ; ++i) g1[i] = (i == c - 2 * kNQ) ? T(-1) : T(0);
   }
-  T L[kNQ][kNQ], Jc[kNQ], Minv_Jt[kNQ], da[kNQ], df;
-  for (int i = 0; i < kNQ; ++i) {
-    for (int j = 0; j < kNQ; ++j) L[i][j] = j <= i ? rec[kRecL + packed_lower(i, j)] : T(0);
-    Jc[i] = rec[kRecJp + 2 * kNQ + i];
-    Minv_Jt[i] = rec[kRecMinvJt + i];
+  T da[kNQ];
+  if constexpr (NC == 1) {
+    T L[kNQ][kNQ], Jc[kNQ], Minv_Jt[kNQ], df;
+    for (int i = 0; i < kNQ; ++i) {
+      for (int j = 0; j < kNQ; ++j) L[i][j] = j <= i ? rec[kRecL + packed_lower(i, j)] : T(0);
+      Jc[i] = rec[kRecJp + 2 * kNQ + i];
+      Minv_Jt[i] = rec[kRecMinvJt + i];
+    }
+    implicit_column<T, SURFACE>(L, Jc, Minv_Jt, rec[kRecLS], g1, h2[0], da, df);
+    column_out(rec, 63 + c) = df;
+  } else {
+    // mg = M^-1 g1; df = LS^-1 (Jc mg - h2); da = -mg + M^-1 Jc^T df
+    using CR = ContactRecord<3>;
+    T L[kNQ][kNQ], mg[kNQ];
+    for (int i = 0; i < kNQ; ++i)
+      for (int j = 0; j < kNQ; ++j) L[i][j] = j <= i ? rec[kRecL + packed_lower(i, j)] : T(0);
+    chol_solve<T, kNQ>(L, g1, mg);
+    T df[3] = {T(0), T(0), T(0)};
+    if constexpr (SURFACE) {
+      T rhs[3], LS[3][3];
+      for (int r = 0; r < 3; ++r) {
+        T jm = T(0);
+        for (int j = 0; j < kNQ; ++j) jm = jm + rec[kRecJp + r * kNQ + j] * mg[j];
+        rhs[r] = jm - h2[r];
+        for (int k = 0; k < 3; ++k) LS[r][k] = k <= r ? rec[CR::kLS + packed_lower(r, k)] : T(0);
+      }
+      chol_solve<T, 3>(LS, rhs, df);
+    }
+    for (int i = 0; i < kNQ; ++i)
+      da[i] = SURFACE ? -mg[i] + ((rec[CR::kMinvJt + i] * df[0] +
+                                   rec[CR::kMinvJt + kNQ + i] * df[1]) +
+                                  rec[CR::kMinvJt + 2 * kNQ + i] * df[2])
+                      : -mg[i];
+    for (int r = 0; r < 3; ++r) column_out(rec, 63 + r * kNY + c) = df[r];
   }
-  implicit_column<T, SURFACE>(L, Jc, Minv_Jt, rec[kRecLS], g1, h2, da, df);
-  rec[kRecDf + c] = df;
   if (fx) {
     const T dt = C.dt, dt2 = C.dt * C.dt;
     for (int i = 0; i < kNQ; ++i) {
@@ -1372,22 +1714,29 @@ FFMPC_HD_OUTLINED void diff_column(const KnotConstants<T>& C, R rec, int c, T* f
 // Lx[c] into the record, and column c of Lxx: entries (a, c) for a <= c,
 // each written to lxx[a * 21 + c] and lxx[c * 21 + a].  The group
 // Jacobians' entries are read where some term weights their row and are 0
-// elsewhere, so such a row adds exactly nothing.
-template <typename T, bool SURFACE, typename R>
+// elsewhere, so such a row adds exactly nothing.  The point contact's force
+// rows: df^T g_F and df^T H_F df with H_F the 3 x 3 of residuals_groups.
+template <typename T, bool SURFACE, int NC, typename R>
 FFMPC_HD_OUTLINED void diff_lxx_column(R rec, int c, T* lxx) {
-  bool live[13];
-  for (int r = 0; r < 13; ++r) live[r] = rec[kRecLive + r] != T(0);
+  using CR = ContactRecord<NC>;
+  constexpr int kCo = CR::kColumns;  // d ori / dq, then d vel6 / dq, then df
+  bool live[12 + NC];
+  for (int r = 0; r < 12 + NC; ++r) live[r] = rec[CR::kLive + r] != T(0);
   const bool live_f = SURFACE && live[kLiveF];
-  auto jac_ori = [&](int r, int a) { return live[kLiveOri + r] ? rec[kRecDori + r * kNQ + a] : T(0); };
+  auto jac_ori = [&](int r, int a) { return live[kLiveOri + r] ? rec[kCo + r * kNQ + a] : T(0); };
   auto jac_pos = [&](int r, int a) { return live[kLivePos + r] ? rec[kRecJp + r * kNQ + a] : T(0); };
   auto jac_vel = [&](int r, int a) {
     if (!live[kLiveVel + r]) return T(0);
-    if (a < kNQ) return rec[kRecDvel + r * kNQ + a];
+    if (a < kNQ) return rec[kCo + 21 + r * kNQ + a];
     return r < 3 ? rec[kRecJp + r * kNQ + (a - kNQ)] : rec[kRecAxis + (a - kNQ) * 3 + (r - 3)];
+  };
+  // the point contact's force rows' Jacobian entries (live rows only)
+  auto jac_f = [&](int r, int a) {
+    return SURFACE && live[kLiveF + r] ? rec[kCo + 63 + r * kNY + a] : T(0);
   };
   T s = rec[kRecGy + c];
   T hori[3] = {T(0), T(0), T(0)}, hpos[3] = {T(0), T(0), T(0)};
-  T hvel[6] = {T(0), T(0), T(0), T(0), T(0), T(0)}, hf = T(0);
+  T hvel[6] = {T(0), T(0), T(0), T(0), T(0), T(0)}, hf = T(0), hf3[3] = {T(0), T(0), T(0)};
   if (c < kNQ)
     for (int r = 0; r < 3; ++r) {
       const T jo = jac_ori(r, c), jp = jac_pos(r, c);
@@ -1401,10 +1750,21 @@ FFMPC_HD_OUTLINED void diff_lxx_column(R rec, int c, T* lxx) {
       s = s + jv * rec[kRecGVel + r];
       hvel[r] = rec[kRecHVel + r] * jv;
     }
-  if (live_f) {
-    const T jf = rec[kRecDf + c];
-    s = s + jf * rec[kRecGF];
-    hf = rec[kRecHF] * jf;
+  if constexpr (NC == 1) {
+    if (live_f) {
+      const T jf = rec[kRecDf + c];
+      s = s + jf * rec[kRecGF];
+      hf = rec[kRecHF] * jf;
+    }
+  } else {
+    const T jf[3] = {jac_f(0, c), jac_f(1, c), jac_f(2, c)};
+    s = s + ((jf[0] * rec[CR::kGF] + jf[1] * rec[CR::kGF + 1]) + jf[2] * rec[CR::kGF + 2]);
+    for (int r = 0; r < 3; ++r) {
+      T t = T(0);
+      for (int k = 0; k < 3; ++k)
+        t = t + rec[CR::kHF + (k <= r ? packed_lower(r, k) : packed_lower(k, r))] * jf[k];
+      hf3[r] = t;
+    }
   }
   rec[kRecLx + c] = s;
   for (int a = 0; a <= c; ++a) {
@@ -1413,7 +1773,11 @@ FFMPC_HD_OUTLINED void diff_lxx_column(R rec, int c, T* lxx) {
       for (int r = 0; r < 3; ++r) h = h + (jac_ori(r, a) * hori[r] + jac_pos(r, a) * hpos[r]);
     if (c < 2 * kNQ)
       for (int r = 0; r < 6; ++r) h = h + jac_vel(r, a) * hvel[r];
-    if (live_f) h = h + rec[kRecDf + a] * hf;
+    if constexpr (NC == 1) {
+      if (live_f) h = h + rec[kRecDf + a] * hf;
+    } else {
+      h = h + ((jac_f(0, a) * hf3[0] + jac_f(1, a) * hf3[1]) + jac_f(2, a) * hf3[2]);
+    }
     lxx[a * kNY + c] = h;
     lxx[c * kNY + a] = h;
   }
@@ -1423,12 +1787,12 @@ FFMPC_HD_OUTLINED void diff_lxx_column(R rec, int c, T* lxx) {
 // flat index e in the knot's block: Fx rows 14-20 (alpha on the diagonal;
 // e counts from row 14) and Fu (beta on the torque rows); and Luu, the
 // diagonal hu of the control terms.  Lxu is zero.
-template <typename T>
-FFMPC_HD T fx_filter_rows(const KnotConstants<T>& C, int e) {
+template <typename T, int NC>
+FFMPC_HD T fx_filter_rows(const KnotConstants<T, NC>& C, int e) {
   return (14 + e / kNY == e % kNY) ? C.lpf_alpha : T(0);
 }
-template <typename T>
-FFMPC_HD T fu_entry(const KnotConstants<T>& C, int e) {
+template <typename T, int NC>
+FFMPC_HD T fu_entry(const KnotConstants<T, NC>& C, int e) {
   return (e / kNW - 14 == e % kNW) ? C.lpf_beta : T(0);
 }
 template <typename T, typename R>
@@ -1482,13 +1846,32 @@ FFMPC_HD void stage_inputs(const DiffArgs<T>& a, int b, int t, R in) {
   for (int v = 0; v < 57; ++v) in[kInRef + v] = ref.at(v);
 }
 
+// The columns listed in `columns` (n of them; all, ascending, where columns
+// is null) of one knot on one host thread, with fx as diff_column takes it;
+// the point contact's staged outputs then copied into the record, as the
+// kernel copies them after its columns.
+template <typename T, bool SURFACE, int NC>
+inline void serial_columns(const KnotConstants<T, NC>& C, const KnotRecord<T, 1>& rec,
+                           const int* columns, int n, T* fx) {
+  if constexpr (NC == 1) {
+    for (int i = 0; i < (columns ? n : kNY); ++i)
+      diff_column<T, SURFACE>(C, rec, columns ? columns[i] : i, fx);
+  } else {
+    T stage[kColumnValues] = {};
+    const StagedRecord<T, 1> staged{rec.p, stage};
+    for (int i = 0; i < (columns ? n : kNY); ++i)
+      diff_column<T, SURFACE>(C, staged, columns ? columns[i] : i, fx);
+    for (int v = 0; v < kColumnValues; ++v) rec[ContactRecord<3>::kColumns + v] = stage[v];
+  }
+}
+
 // Knot t of problem b on one host thread, every part in turn: the primal
 // part, the columns listed in `columns` (n of them; every column of the knot
 // where columns is null), then every Lxx column and the rest of the
 // outputs.  What the kernel's block does for each of its 32 knots; the
 // tests' g++ build of this header runs it.
-template <typename T, bool SURFACE>
-inline void diff_knot_serial(const KnotConstants<T>& C, const DiffArgs<T>& a, int b, int t,
+template <typename T, bool SURFACE, int NC>
+inline void diff_knot_serial(const KnotConstants<T, NC>& C, const DiffArgs<T>& a, int b, int t,
                              const int* columns, int n) {
   T buf[kRecSize] = {}, inputs[kInSize];
   const KnotRecord<T, 1> rec{buf}, in{inputs};
@@ -1499,10 +1882,9 @@ inline void diff_knot_serial(const KnotConstants<T>& C, const DiffArgs<T>& a, in
   if (!terminal)
     for (int i = 0; i < kNY; ++i) a.xnext[k * kNY + i] = rec[kRecXnext + i];
   T* fx = terminal ? nullptr : a.Fx + k * kNY * kNY;
-  for (int i = 0; i < (columns ? n : kNY); ++i)
-    diff_column<T, SURFACE>(C, rec, columns ? columns[i] : i, fx);
+  serial_columns<T, SURFACE>(C, rec, columns, n, fx);
   T* lxx = terminal ? a.LxxT + (size_t)b * kNY * kNY : a.Lxx + k * kNY * kNY;
-  for (int c = 0; c < kNY; ++c) diff_lxx_column<T, SURFACE>(rec, c, lxx);
+  for (int c = 0; c < kNY; ++c) diff_lxx_column<T, SURFACE, NC>(rec, c, lxx);
   T* lx = terminal ? a.LxT + (size_t)b * kNY : a.Lx + k * kNY;
   for (int c = 0; c < kNY; ++c) lx[c] = rec[kRecLx + c];
   if (terminal) {
@@ -1537,10 +1919,12 @@ FFMPC_HD int classical_uu(int e) {
 // knot and unscaled on the terminal knot (Crocoddyl's terminal overload), so
 // its cost and the groups' and identity terms' gradients and Hessians are
 // the running table's divided by dt.
-template <typename T, typename R>
-FFMPC_HD void classical_terminal_unscale(const KnotConstants<T>& C, R rec) {
+template <typename T, typename R, int NC>
+FFMPC_HD void classical_terminal_unscale(const KnotConstants<T, NC>& C, R rec) {
   rec[kRecCost] = rec[kRecCost] / C.dt;
   for (int i = kRecGOri; i < kRecLive; ++i) rec[i] = rec[i] / C.dt;
+  if constexpr (NC == 3)  // the point contact's force rows, kept elsewhere
+    for (int i = ContactRecord<3>::kGF; i < ContactRecord<3>::kLive; ++i) rec[i] = rec[i] / C.dt;
 }
 
 // diff_knot_serial for a classical knot: its state (14) and control staged
@@ -1550,8 +1934,8 @@ FFMPC_HD void classical_terminal_unscale(const KnotConstants<T>& C, R rec) {
 // the results written to its outputs (DiffArgs at nx = 14).  Where
 // `columns` is given, only those columns run, and Fx / Fu entries of the
 // others come out NaN.
-template <typename T, bool SURFACE>
-inline void diff_knot_serial_classical(const KnotConstants<T>& Ck, const DiffArgs<T>& a, int b,
+template <typename T, bool SURFACE, int NC>
+inline void diff_knot_serial_classical(const KnotConstants<T, NC>& Ck, const DiffArgs<T>& a, int b,
                                        int t, const int* columns, int n) {
   constexpr int nx = Classical::kNX;
   T buf[kRecSize] = {}, inputs[kInSize], fx[kNY * kNY], lxx[kNY * kNY];
@@ -1570,9 +1954,8 @@ inline void diff_knot_serial_classical(const KnotConstants<T>& Ck, const DiffArg
   if (terminal) classical_terminal_unscale<T>(Ck, rec);
   if (!terminal)
     for (int i = 0; i < nx; ++i) a.xnext[k * nx + i] = rec[kRecXnext + i];
-  for (int i = 0; i < (columns ? n : kNY); ++i)
-    diff_column<T, SURFACE>(Ck, rec, columns ? columns[i] : i, terminal ? nullptr : fx);
-  for (int c = 0; c < kNY; ++c) diff_lxx_column<T, SURFACE>(rec, c, lxx);
+  serial_columns<T, SURFACE>(Ck, rec, columns, n, terminal ? nullptr : fx);
+  for (int c = 0; c < kNY; ++c) diff_lxx_column<T, SURFACE, NC>(rec, c, lxx);
   if (terminal) {
     a.cost_T[b] = rec[kRecCost];
     for (int e = 0; e < nx * nx; ++e) a.LxxT[(size_t)b * nx * nx + e] = lxx[classical_xx(e)];
@@ -1759,6 +2142,23 @@ static_assert(kGIw + 63 <= kRecBias && kGOmd + 21 <= kRecSize &&
                   kGWrench + 63 <= kRecGOri && kGScanA + 84 <= kRecGOri,
               "group scratch overlaps");
 
+// The group's contact fields by contact width: the force (nc), the drift
+// (nc) and the acceleration; the normal contact's are GroupField's.  The
+// point contact's contact solve (phase 8, lane 7) also keeps M^-1 tau and
+// M^-1 Jc^T (7 + 21) in the frames' scratch, free by then.
+template <int NC>
+struct GroupContact {
+  static constexpr int kForce = kGForce, kDrift = kGDrift, kAcc = kGAcc;
+};
+template <>
+struct GroupContact<3> {
+  static constexpr int kForce = kRecMinvJt, kDrift = ContactRecord<3>::kDrift,
+                       kAcc = ContactRecord<3>::kAccel, kSolve = kGScanA;
+};
+static_assert(GroupContact<3>::kForce + 3 <= kGM + 28 + 9 && GroupContact<3>::kForce >= kGM + 28 &&
+                  GroupContact<3>::kAcc + 7 <= kGDx && GroupContact<3>::kDrift == kGBias + 7,
+              "point contact group scratch overlaps");
+
 // The registers of one lane: lane j < 7 carries joint j's state (q, v, tau)
 // and control, and its shares of the gap sum and of the cost over the
 // horizon; lane 7 only a share of the cost.
@@ -1787,22 +2187,38 @@ enum LaneRow {
 constexpr int kRowRecord = 4;
 constexpr int kLaneRowValues = kLaneRows * kRowRecord;
 constexpr int kRowTableSize = 2 * kNQ * kLaneRowValues;  // [terminal][lane][row][record]
+// The point contact's tool rows: unilateral and fn_track on lane j < 3
+// (force component j), and the friction cone's row j on lane j < 4.
+constexpr int kLrFrictionCone = kLaneRows;
+template <int NC>
+struct LaneRowLayout {
+  static constexpr int kRows = NC == 1 ? kLaneRows : kLaneRows + 1;
+  static constexpr int kValues = kRows * kRowRecord;
+  static constexpr int kTableSize = 2 * kNQ * kValues;  // [terminal][lane][row][record]
+};
 
-template <typename T>
-FFMPC_HD void lane_row_table(const KnotConstants<T>& C, int j, bool terminal, T* rec) {
-  const int slot[kLaneRows] = {kPosture, kPosture, kVDamp, kVDamp, kQSoft, kQSoft, kTauReg,
-                               kTauSoft, kYReg, kYReg, kYReg, kWReg, kWSoft,
-                               kWDamp, kEeVxy, kVzDamp, kEePos, kEeXy, kPlaneZ, kUnilateral,
-                               kFnTrack};
-  const int row[kLaneRows] = {kRowPosture + j, kRowPosture + 7 + j, kRowVDamp + j,
-                              kRowVDamp + 7 + j, kRowQSoft + j, kRowQSoft + 7 + j,
-                              kRowTauReg + j, kRowTauSoft + j, kRowYReg + j, kRowYReg + 7 + j,
-                              kRowYReg + 14 + j, kRowWReg + j, kRowWSoft + j,
-                              kRowWDamp + j, kRowEeVxy + j, kRowVzDamp + j, kRowEePos + j,
-                              kRowEeXy + j, kRowPlaneZ + j, kRowUnilateral, kRowFnTrack};
-  // rows a lane holds: the tool velocity's 6, the position's 3, the force's 1 (lane 6)
-  const int lanes[kLaneRows] = {7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 6, 6, 6, 3, 3, 3, -6, -6};
-  for (int k = 0; k < kLaneRows; ++k) {
+template <typename T, int NC>
+FFMPC_HD void lane_row_table(const KnotConstants<T, NC>& C, int j, bool terminal, T* rec) {
+  using CL = CostLayout<NC>;
+  constexpr int kRows = LaneRowLayout<NC>::kRows;
+  // the normal contact's force rows sit on lane 6 (-6), the point contact's
+  // on lanes j < 3, its cone's on lanes j < 4
+  constexpr bool P3 = NC == 3;
+  const int slot[kLaneRows + 1] = {kPosture, kPosture, kVDamp, kVDamp, kQSoft, kQSoft, kTauReg,
+                                   kTauSoft, CL::kYReg, CL::kYReg, CL::kYReg, CL::kWReg,
+                                   CL::kWSoft, kWDamp, kEeVxy, kVzDamp, kEePos, kEeXy, kPlaneZ,
+                                   CL::kUnilateral, CL::kFnTrack, CL::kFrictionCone};
+  const int row[kLaneRows + 1] = {
+      kRowPosture + j, kRowPosture + 7 + j, kRowVDamp + j, kRowVDamp + 7 + j, kRowQSoft + j,
+      kRowQSoft + 7 + j, kRowTauReg + j, kRowTauSoft + j, CL::kRowYReg + j, CL::kRowYReg + 7 + j,
+      CL::kRowYReg + 14 + j, CL::kRowWReg + j, CL::kRowWSoft + j, kRowWDamp + j, kRowEeVxy + j,
+      kRowVzDamp + j, kRowEePos + j, kRowEeXy + j, kRowPlaneZ + j,
+      CL::kRowUnilateral + (P3 ? j : 0), CL::kRowFnTrack + (P3 ? j : 0),
+      CL::kRowFrictionCone + j};
+  // rows a lane holds: the tool velocity's 6, the position's 3, the force's
+  const int lanes[kLaneRows + 1] = {7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 7, 6, 6, 6, 3, 3, 3,
+                                    P3 ? 3 : -6, P3 ? 3 : -6, 4};
+  for (int k = 0; k < kRows; ++k) {
     T* e = rec + k * kRowRecord;
     const int sl = slot[k];
     const bool tau = k == kLrTauReg || k == kLrTauSoft;
@@ -1853,6 +2269,10 @@ FFMPC_HD T row_cost(const T* e, T r) {
 // Lane 7 runs the Cholesky factor with the contact solve, lane 6 beside it
 // the tool's orientation error.
 constexpr int kGroupPhases = 10;
+// The phases of a knot of family F: the point contact's force takes a
+// phase of its own after the solves (group_contact_force).
+template <typename F>
+constexpr int kFamilyPhases = F::kNC == 1 ? kGroupPhases : kGroupPhases + 1;
 
 // Frames as 12 values, a rotation row-major and an origin.  out = a b, the
 // step of fk_chain's recursion: (Ra Rb, pa + Ra pb).
@@ -1874,8 +2294,8 @@ FFMPC_HD void compose_frames(const T* a, const T* b, T (&out)[12]) {
 // The phases read before they write: a store to the scratch would keep the
 // compiler from moving a later load of the constants or the plan (all in
 // shared memory) above it.
-template <typename T>
-FFMPC_HD void group_state(const KnotConstants<T>& C, const T* plan, const T* rows, T* g,
+template <typename T, int NC>
+FFMPC_HD void group_state(const KnotConstants<T, NC>& C, const T* plan, const T* rows, T* g,
                           LaneState<T>& ls, int j, T* xs_row) {
   const T* ref = plan + kPlRef;
   const T dq = ls.q - plan[kPlXnom + j];
@@ -1916,9 +2336,9 @@ FFMPC_HD void group_state(const KnotConstants<T>& C, const T* plan, const T* row
 // state row into xs_try (14 wide), dx, the gap sum's terms, cos and sin,
 // joint j's transform, and the state's cost rows.  Its torque is the
 // control, which the policy phase forms.
-template <typename T>
-FFMPC_HD void group_state_classical(const KnotConstants<T>& C, const T* plan, const T* rows, T* g,
-                                    LaneState<T>& ls, int j, T* xs_row) {
+template <typename T, int NC>
+FFMPC_HD void group_state_classical(const KnotConstants<T, NC>& C, const T* plan, const T* rows,
+                                    T* g, LaneState<T>& ls, int j, T* xs_row) {
   const T* ref = plan + kPlRef;
   const T dq = ls.q - plan[kPlXnom + j];
   const T dv = ls.v - plan[kPlXnom + 7 + j];
@@ -1964,8 +2384,8 @@ FFMPC_HD void group_scan(T* g, int j, int d, int src, int dst) {
 
 // Phase 1, lane j < 7: u_j = clip(u_nom_j - alpha kff_j - K_j dx) into
 // us_try (0 at the terminal knot), and its control cost rows.
-template <typename T>
-FFMPC_HD void group_policy(const KnotConstants<T>& C, const T* plan, const T* rows, const T* g,
+template <typename T, int NC>
+FFMPC_HD void group_policy(const KnotConstants<T, NC>& C, const T* plan, const T* rows, const T* g,
                            LaneState<T>& ls, int j, bool terminal, T alpha, T* us_row) {
   T u = T(0);
   if (!terminal) {
@@ -1990,8 +2410,8 @@ FFMPC_HD void group_policy(const KnotConstants<T>& C, const T* plan, const T* ro
 // - K_j dx) over the 14 state columns into us_try (0 at the terminal knot),
 // as the torque the dynamics take, and its cost rows: tau_reg on
 // u_j - tau_ref_j and tau_soft_limits on u_j (running knots only).
-template <typename T>
-FFMPC_HD void group_policy_classical(const KnotConstants<T>& C, const T* plan, const T* rows,
+template <typename T, int NC>
+FFMPC_HD void group_policy_classical(const KnotConstants<T, NC>& C, const T* plan, const T* rows,
                                      T* g, LaneState<T>& ls, int j, bool terminal, T alpha,
                                      T* us_row) {
   T u = T(0);
@@ -2016,8 +2436,8 @@ FFMPC_HD void group_policy_classical(const KnotConstants<T>& C, const T* plan, c
 // link j's world rotation and origin (fk_chain's), its joint axis, and
 // a_j v_j, joint j's share of the links' angular velocities; lane 6 also
 // the tool frame.
-template <typename T>
-FFMPC_HD void group_frames(const KnotConstants<T>& C, T* g, const LaneState<T>& ls, int j) {
+template <typename T, int NC>
+FFMPC_HD void group_frames(const KnotConstants<T, NC>& C, T* g, const LaneState<T>& ls, int j) {
   T S[12], W[12], base[12];
   if (j >= 4) {
     compose_frames<T>(g + kGScanA + (j - 4) * 12, g + kGScanA + j * 12, S);
@@ -2050,8 +2470,8 @@ FFMPC_HD void group_frames(const KnotConstants<T>& C, T* g, const LaneState<T>& 
 // tool origin, axis_i x (ee_p - p_i); link i's angular velocity (the sum of
 // a_j v_j over j <= i, rnea's w) and its share of the rates,
 // omega_{i-1} x a_i v_i (rnea's wd at a = 0).
-template <typename T>
-FFMPC_HD void group_link(const KnotConstants<T>& C, T* g, int i) {
+template <typename T, int NC>
+FFMPC_HD void group_link(const KnotConstants<T, NC>& C, T* g, int i) {
   T Rw[3][3], cw[3], Iw[3][3], IRt[3][3], ax[3], r[3], c[3], own[3], e[3], om[3], om_prev[3];
   for (int a = 0; a < 3; ++a)
     for (int b = 0; b < 3; ++b) Rw[a][b] = g[kGRot + i * 9 + a * 3 + b];
@@ -2094,8 +2514,8 @@ FFMPC_HD void group_link(const KnotConstants<T>& C, T* g, int i) {
 // its inertia Ic = sum Iw_i + m_i (|r_i|^2 I - r_i r_i^T) and first moment
 // h = sum m_i r_i, M[j][k] = a_j . (Ic a_k + (p_k - p_j) x (a_k x h)), and
 // the armature on the diagonal.
-template <typename T>
-FFMPC_HD void group_mass_column(const KnotConstants<T>& C, T* g, int k) {
+template <typename T, int NC>
+FFMPC_HD void group_mass_column(const KnotConstants<T, NC>& C, T* g, int k) {
   T ak[3], pk[3], h[3] = {T(0), T(0), T(0)};
   T I00 = T(0), I11 = T(0), I22 = T(0), I01 = T(0), I02 = T(0), I12 = T(0);
   for (int a = 0; a < 3; ++a) {
@@ -2139,8 +2559,8 @@ FFMPC_HD void group_mass_column(const KnotConstants<T>& C, T* g, int k) {
 // shares over j <= i) and its share of the origins' linear accelerations,
 // wd_{i-1} x d_i + w_{i-1} x (w_{i-1} x d_i) with d_i = p_i - p_{i-1} (rnea's
 // ac recursion, in the world).
-template <typename T>
-FFMPC_HD void group_rates(const KnotConstants<T>& C, T* g, int i) {
+template <typename T, int NC>
+FFMPC_HD void group_rates(const KnotConstants<T, NC>& C, T* g, int i) {
   T d[3], t0[3], t1[3], t2[3], om_prev[3], omd[3], omd_prev[3];
   for (int a = 0; a < 3; ++a) {
     om_prev[a] = g[kGRot + i * 9 + 3 + a];
@@ -2164,9 +2584,10 @@ FFMPC_HD void group_rates(const KnotConstants<T>& C, T* g, int i) {
 // the shares over j <= i: rnea's gravity trick), its centre's, and the force
 // and moment about its centre that keep it on that path (rnea's F and
 // Nn + w x I w); lane 6 also the tool's acceleration at a = 0 with gravity
-// taken back out, whose z row is the contact drift.
-template <typename T>
-FFMPC_HD void group_wrench(const KnotConstants<T>& C, T* g, int i) {
+// taken back out, whose z row (the point contact: all three) is the contact
+// drift.
+template <typename T, int NC>
+FFMPC_HD void group_wrench(const KnotConstants<T, NC>& C, T* g, int i) {
   T al[3], cw[3], r[3], t0[3], t1[3], t2[3], F[3], Iw[3], Nn[3], t3[3], om[3], omd[3];
   for (int a = 0; a < 3; ++a) {
     om[a] = g[kGRot + i * 9 + a];
@@ -2194,7 +2615,11 @@ FFMPC_HD void group_wrench(const KnotConstants<T>& C, T* g, int i) {
     cross3<T>(omd, t, u0);
     cross3<T>(om, t, u1);
     cross3<T>(om, u1, u2);
-    g[kGDrift] = (al[2] + u0[2] + u2[2]) + C.gravity[2];
+    if constexpr (NC == 1)
+      g[kGDrift] = (al[2] + u0[2] + u2[2]) + C.gravity[2];
+    else
+      for (int a = 0; a < 3; ++a)
+        g[GroupContact<3>::kDrift + a] = (al[a] + u0[a] + u2[a]) + C.gravity[a];
   }
   for (int a = 0; a < 3; ++a) {
     g[kGWrench + i * 9 + a] = cw[a];
@@ -2206,8 +2631,8 @@ FFMPC_HD void group_wrench(const KnotConstants<T>& C, T* g, int i) {
 // Phase 7, lane i < 7: the bias torque b_i = axis_i . n_i + damping_i v_i,
 // n_i the moment about joint i's origin of the wrenches of links i..6
 // (rnea's backward pass); lane a < 6 also component a of the tool velocity.
-template <typename T>
-FFMPC_HD void group_bias(const KnotConstants<T>& C, T* g, int i) {
+template <typename T, int NC>
+FFMPC_HD void group_bias(const KnotConstants<T, NC>& C, T* g, int i) {
   T n[3] = {T(0), T(0), T(0)};
   FFMPC_UNROLL
   for (int k = 0; k < kNQ; ++k) {
@@ -2273,8 +2698,9 @@ FFMPC_HD void chol_solve_inv(const T (&L)[kNQ][kNQ], const T (&inv)[kNQ], const 
 
 // Phase 8, lane 7: the free dynamics and the damped 1-D contact solve
 // (primal_contact's), the acceleration and the force.
-template <typename T, bool SURFACE>
-FFMPC_HD void group_contact(const KnotConstants<T>& C, const T* plan, T* g) {
+template <typename T, bool SURFACE, int NC>
+FFMPC_HD void group_contact(const KnotConstants<T, NC>& C, const T* plan, T* g) {
+  static_assert(NC == 1, "the point contact's solve is group_contact_solve / _force");
   T L[kNQ][kNQ], inv[kNQ], rhs[kNQ], Minv_tau[kNQ];
   FFMPC_UNROLL
   for (int i = 0; i < kNQ; ++i) {
@@ -2305,6 +2731,99 @@ FFMPC_HD void group_contact(const KnotConstants<T>& C, const T* plan, T* g) {
     for (int i = 0; i < kNQ; ++i) g[kGAcc + i] = Minv_tau[i];
   }
   g[kGForce] = force;
+
+}
+
+// The point contact's contact solve in two phases.  Phase 8, lanes 4-7
+// (lane 7 alone in free space): each factors M (as lane 7 does for the
+// normal contact, the same instructions on every lane, so the lanes do not
+// branch apart) and solves for its right-hand side: lane 7 M^-1 (tau - b),
+// lane 4 + r the column M^-1 Jc_r^T; into the group's scratch
+// (GroupContact<3>::kSolve: M^-1 tau, then the three columns).
+template <typename T, bool SURFACE, int NC>
+FFMPC_HD void group_contact_solve(const KnotConstants<T, NC>& C, T* g, int lane) {
+  T L[kNQ][kNQ], inv[kNQ], rhs[kNQ], x[kNQ];
+  const int r = lane - 4;
+  FFMPC_UNROLL
+  for (int i = 0; i < kNQ; ++i) {
+    FFMPC_UNROLL
+    for (int j = 0; j <= i; ++j) L[i][j] = g[kGM + packed_lower(i, j)];
+    rhs[i] = r == 3 ? g[kGTau + i] - g[kGBias + i] : g[kGJp + r * kNQ + i];
+  }
+  chol_inplace<T>(L, inv);
+  chol_solve_inv<T>(L, inv, rhs, x);
+  T* const m = g + GroupContact<3>::kSolve + (r == 3 ? 0 : kNQ + r * kNQ);
+  FFMPC_UNROLL
+  for (int i = 0; i < kNQ; ++i) m[i] = x[i];
+}
+
+// Phase 9 of the point contact, lane 7: the damped Schur complement
+// S = Jc M^-1 Jc^T + c I from the solves' columns, its 3 x 3 factor (the
+// pivots' reciprocal square roots, as chol_inplace), the force
+// S^-1 (a_des - Jc M^-1 (tau - b)) and the acceleration.
+template <typename T, bool SURFACE, int NC>
+FFMPC_HD void group_contact_force(const KnotConstants<T, NC>& C, const T* plan, T* g) {
+  using GC = GroupContact<3>;
+  const T* const m = g + GC::kSolve;  // M^-1 tau (7), then M^-1 Jc^T's columns (3 x 7)
+  T f[3] = {T(0), T(0), T(0)};
+  if constexpr (SURFACE) {
+    T srhs[3], S[3][3], is[3], y[3];
+    FFMPC_UNROLL
+    for (int i = 0; i < 3; ++i) {
+      T vel_c = T(0), JMt = T(0);
+      FFMPC_UNROLL
+      for (int k = 0; k < kNQ; ++k) {
+        vel_c = vel_c + g[kGJp + i * kNQ + k] * g[kGV + k];
+        JMt = JMt + g[kGJp + i * kNQ + k] * m[k];
+      }
+      const T gap = g[kGEeP + i] - (i < 2 ? plan[kPlRef + i] : plan[kPlRef + 2] - C.z_press);
+      const T a_des = (-g[GC::kDrift + i] - C.kp * gap) - C.kd * vel_c;
+      srhs[i] = a_des - JMt;
+      FFMPC_UNROLL
+      for (int j = 0; j <= i; ++j) {
+        T sij = T(0);
+        FFMPC_UNROLL
+        for (int k = 0; k < kNQ; ++k) sij = sij + g[kGJp + i * kNQ + k] * m[kNQ + j * kNQ + k];
+        S[i][j] = (i == j) ? sij + C.damping_c : sij;
+      }
+    }
+    FFMPC_UNROLL
+    for (int j = 0; j < 3; ++j) {
+      FFMPC_UNROLL
+      for (int i = j; i < 3; ++i) {
+        T t = S[i][j];
+        FFMPC_UNROLL
+        for (int k = 0; k < j; ++k) t = t - S[i][k] * S[j][k];
+        S[i][j] = t;
+      }
+      is[j] = rsqrt_(S[j][j]);
+      FFMPC_UNROLL
+      for (int i = j; i < 3; ++i) S[i][j] = S[i][j] * is[j];
+    }
+    FFMPC_UNROLL
+    for (int i = 0; i < 3; ++i) {
+      T t = srhs[i];
+      FFMPC_UNROLL
+      for (int k = 0; k < i; ++k) t = t - S[i][k] * y[k];
+      y[i] = t * is[i];
+    }
+    FFMPC_UNROLL
+    for (int i = 2; i >= 0; --i) {
+      T t = y[i];
+      FFMPC_UNROLL
+      for (int k = i + 1; k < 3; ++k) t = t - S[k][i] * f[k];
+      f[i] = t * is[i];
+    }
+  }
+  FFMPC_UNROLL
+  for (int i = 0; i < kNQ; ++i) {
+    T acc = m[i];
+    if constexpr (SURFACE)
+      acc = acc + ((m[kNQ + i] * f[0] + m[2 * kNQ + i] * f[1]) + m[3 * kNQ + i] * f[2]);
+    g[GC::kAcc + i] = acc;
+  }
+  FFMPC_UNROLL
+  for (int r = 0; r < 3; ++r) g[GC::kForce + r] = f[r];
 }
 
 // Component a < 6 of the tool velocity (Jp v, then the axes' sum).
@@ -2319,10 +2838,10 @@ FFMPC_HD void group_velocity(T* g, int a) {
 // Phase 9, lane j < 7 (running knots): semi-implicit Euler on (q_j, v_j),
 // the torque filter, and the gap-keeping update x + (alpha - 1)(1 -
 // feasible) fs_{t+1} (gap_scale holds the factor).
-template <typename T>
-FFMPC_HD void group_advance(const KnotConstants<T>& C, const T* plan, const T* g,
+template <typename T, int NC>
+FFMPC_HD void group_advance(const KnotConstants<T, NC>& C, const T* plan, const T* g,
                             LaneState<T>& ls, int j, T gap_scale) {
-  const T vn = ls.v + C.dt * g[kGAcc + j];
+  const T vn = ls.v + C.dt * g[GroupContact<NC>::kAcc + j];
   const T qn = ls.q + C.dt * vn;
   const T tn = C.lpf_alpha * ls.tau + C.lpf_beta * ls.u;
   ls.q = qn + gap_scale * plan[kPlFs + j];
@@ -2332,10 +2851,10 @@ FFMPC_HD void group_advance(const KnotConstants<T>& C, const T* plan, const T* g
 
 // Phase 9 of a classical knot, lane j < 7 (running knots): semi-implicit
 // Euler on (q_j, v_j) and the gap-keeping update.
-template <typename T>
-FFMPC_HD void group_advance_classical(const KnotConstants<T>& C, const T* plan, const T* g,
+template <typename T, int NC>
+FFMPC_HD void group_advance_classical(const KnotConstants<T, NC>& C, const T* plan, const T* g,
                                       LaneState<T>& ls, int j, T gap_scale) {
-  const T vn = ls.v + C.dt * g[kGAcc + j];
+  const T vn = ls.v + C.dt * g[GroupContact<NC>::kAcc + j];
   const T qn = ls.q + C.dt * vn;
   ls.q = qn + gap_scale * plan[kPlFs + j];
   ls.v = vn + gap_scale * plan[kPlFs + 7 + j];
@@ -2343,8 +2862,8 @@ FFMPC_HD void group_advance_classical(const KnotConstants<T>& C, const T* plan, 
 
 // Phase 8, lane 6 (beside lane 7's contact solve): the orientation error's
 // term, log3 of R_des^T ee_R.
-template <typename T>
-FFMPC_HD void group_orientation(const KnotConstants<T>& C, const T* plan, const T* g,
+template <typename T, int NC>
+FFMPC_HD void group_orientation(const KnotConstants<T, NC>& C, const T* plan, const T* g,
                                 bool terminal, T& cost) {
   const T* ref = plan + kPlRef;
   T Rrel[3][3], r[3];
@@ -2358,21 +2877,39 @@ FFMPC_HD void group_orientation(const KnotConstants<T>& C, const T* plan, const 
 }
 
 // Phase 9, lane a < 7: the other terms on the tool's frame, a lane a row
-// (kLrWDamp..kLrFnTrack; rows a lane does not hold are of kind 0).
-template <typename T>
-FFMPC_HD void group_tool_rows(const KnotConstants<T>& C, const T* plan, const T* rows,
+// (kLrWDamp..kLrFnTrack, and the point contact's kLrFrictionCone; rows a
+// lane does not hold are of kind 0).
+template <typename T, int NC>
+FFMPC_HD void group_tool_rows(const KnotConstants<T, NC>& C, const T* plan, const T* rows,
                               const T* g, int a, T& cost) {
   const T* ref = plan + kPlRef;
   const T vel = a < 6 ? g[kGVel6 + a] : T(0);
   const T pos = a < 3 ? g[kGEeP + a] - ref[a] : T(0);
-  const T r[kLaneRows - kLrWDamp] = {
-      vel, a < 2 ? vel - ref[3 + a] : vel, vel, pos, pos,
-      a < 2 ? pos : (a == 2 ? g[kGEeP + 2] - (ref[2] - C.z_press) : T(0)),
-      g[kGForce], g[kGForce] - C.fn_des};
-  T sum = T(0);
-  for (int k = kLrWDamp; k < kLaneRows; ++k)
-    sum = sum + row_cost<T>(rows + k * kRowRecord, r[k - kLrWDamp]);
-  cost = cost + sum;
+  if constexpr (NC == 1) {
+    const T r[kLaneRows - kLrWDamp] = {
+        vel, a < 2 ? vel - ref[3 + a] : vel, vel, pos, pos,
+        a < 2 ? pos : (a == 2 ? g[kGEeP + 2] - (ref[2] - C.z_press) : T(0)),
+        g[kGForce], g[kGForce] - C.fn_des};
+    T sum = T(0);
+    for (int k = kLrWDamp; k < kLaneRows; ++k)
+      sum = sum + row_cost<T>(rows + k * kRowRecord, r[k - kLrWDamp]);
+    cost = cost + sum;
+  } else {
+    // force component a (a < 3), and the cone's row a (a < 4): +-f_(a / 2) + mu f2
+    using GC = GroupContact<3>;
+    const T f = a < 3 ? g[GC::kForce + a] : T(0);
+    const T fc = a < 4 ? g[GC::kForce + a / 2] : T(0);
+    const T cone = (a % 2 == 0 ? -fc : fc) + C.mu * g[GC::kForce + 2];
+    const T r[kLaneRows + 1 - kLrWDamp] = {
+        vel, a < 2 ? vel - ref[3 + a] : vel, vel, pos, pos,
+        a < 2 ? pos : (a == 2 ? g[kGEeP + 2] - (ref[2] - C.z_press) : T(0)),
+        f, a == 2 ? f - C.fn_des : f, cone};
+    T sum = T(0);
+    FFMPC_UNROLL
+    for (int k = kLrWDamp; k < kLaneRows + 1; ++k)
+      sum = sum + row_cost<T>(rows + k * kRowRecord, r[k - kLrWDamp]);
+    cost = cost + sum;
+  }
 }
 
 // Phase p of one knot of family F on one lane of a group.  xs_row / us_row:
@@ -2382,11 +2919,13 @@ FFMPC_HD void group_tool_rows(const KnotConstants<T>& C, const T* plan, const T*
 // made from them), read here by the orientation term of a classical
 // terminal knot alone.
 template <typename T, bool SURFACE, typename F = Augmented>
-FFMPC_HD void group_phase(int p, const KnotConstants<T>& C, const KnotConstants<T>& C_term,
-                          const T* plan, const T* table, T* g, LaneState<T>& ls, int lane,
-                          bool terminal, T alpha, T gap_scale, T* xs_row, T* us_row) {
+FFMPC_HD void group_phase(int p, const KnotConstants<T, F::kNC>& C,
+                          const KnotConstants<T, F::kNC>& C_term, const T* plan, const T* table,
+                          T* g, LaneState<T>& ls, int lane, bool terminal, T alpha, T gap_scale,
+                          T* xs_row, T* us_row) {
   const bool joint = lane < kNQ;
-  const T* rows = table + ((terminal ? kNQ : 0) + (joint ? lane : 0)) * kLaneRowValues;
+  const T* rows =
+      table + ((terminal ? kNQ : 0) + (joint ? lane : 0)) * LaneRowLayout<F::kNC>::kValues;
   switch (p) {
     case 0:
       if (joint) {
@@ -2430,15 +2969,33 @@ FFMPC_HD void group_phase(int p, const KnotConstants<T>& C, const KnotConstants<
       }
       break;
     case 8:
-      if (!joint)
-        group_contact<T, SURFACE>(C, plan, g);
-      else if (lane == kNQ - 1) {
-        if constexpr (F::kClassical)
-          group_orientation<T>(terminal ? C_term : C, plan, g, terminal, ls.cost);
-        else
-          group_orientation<T>(C, plan, g, terminal, ls.cost);
+      if constexpr (F::kNC == 1) {
+        if (!joint)
+          group_contact<T, SURFACE>(C, plan, g);
+        else if (lane == kNQ - 1) {
+          if constexpr (F::kClassical)
+            group_orientation<T>(terminal ? C_term : C, plan, g, terminal, ls.cost);
+          else
+            group_orientation<T>(C, plan, g, terminal, ls.cost);
+        }
+      } else {
+        // the point contact: the solves on lanes 4-7, the orientation on lane 0
+        if (SURFACE ? lane >= 4 : !joint)
+          group_contact_solve<T, SURFACE>(C, g, lane);
+        else if (lane == 0) {
+          if constexpr (F::kClassical)
+            group_orientation<T>(terminal ? C_term : C, plan, g, terminal, ls.cost);
+          else
+            group_orientation<T>(C, plan, g, terminal, ls.cost);
+        }
       }
       break;
+    case 9:
+      if constexpr (F::kNC == 3) {  // the point contact's force, its own phase
+        if (!joint) group_contact_force<T, SURFACE>(C, plan, g);
+        break;
+      }
+      [[fallthrough]];
     default:
       if (joint) {
         group_tool_rows<T>(C, plan, rows, g, lane, ls.cost);
@@ -2498,14 +3055,15 @@ FFMPC_HD T step_length(int ai) {
 // tests' g++ build of this header runs.  C: F::kConstSets constants (a
 // classical knot's running, then terminal).
 template <typename T, bool SURFACE, typename F = Augmented>
-inline void rollout_group_serial(const KnotConstants<T>* C, const RolloutArgs<T>& a, int b,
+inline void rollout_group_serial(const KnotConstants<T, F::kNC>* C, const RolloutArgs<T>& a, int b,
                                  int ai) {
   constexpr int nx = F::kNX;
-  const KnotConstants<T>& C_T = C[F::kConstSets - 1];
-  T plan[kPlSize], g[kGSize] = {}, table[kRowTableSize];
+  const KnotConstants<T, F::kNC>& C_T = C[F::kConstSets - 1];
+  using RL = LaneRowLayout<F::kNC>;
+  T plan[kPlSize], g[kGSize] = {}, table[RL::kTableSize];
   LaneState<T> ls[8] = {};
   for (int k = 0; k < 2 * kNQ; ++k)
-    lane_row_table<T>(k >= kNQ ? C_T : C[0], k % kNQ, k >= kNQ, table + k * kLaneRowValues);
+    lane_row_table<T>(k >= kNQ ? C_T : C[0], k % kNQ, k >= kNQ, table + k * RL::kValues);
   for (int j = 0; j < kNQ; ++j) {
     ls[j].q = a.x0[(size_t)b * nx + j];
     ls[j].v = a.x0[(size_t)b * nx + 7 + j];
@@ -2524,7 +3082,7 @@ inline void rollout_group_serial(const KnotConstants<T>* C, const RolloutArgs<T>
     }
     T* xs_row = a.xs_try + (row * (a.N + 1) + t) * nx;
     T* us_row = terminal ? nullptr : a.us_try + (row * a.N + t) * kNW;
-    for (int p = 0; p < kGroupPhases; ++p)
+    for (int p = 0; p < kFamilyPhases<F>; ++p)
       for (int lane = 0; lane < 8; ++lane)
         group_phase<T, SURFACE, F>(p, C[0], C_T, plan, table, g, ls[lane], lane, terminal,
                                    alpha, gap_scale, xs_row, us_row);
@@ -2540,7 +3098,7 @@ inline void rollout_group_serial(const KnotConstants<T>* C, const RolloutArgs<T>
 
 // The same for a family with one set of constants (the augmented knot).
 template <typename T, bool SURFACE, typename F = Augmented>
-inline void rollout_group_serial(const KnotConstants<T>& C, const RolloutArgs<T>& a, int b,
+inline void rollout_group_serial(const KnotConstants<T, F::kNC>& C, const RolloutArgs<T>& a, int b,
                                  int ai) {
   static_assert(F::kConstSets == 1, "this family's terminal knot has constants of its own");
   rollout_group_serial<T, SURFACE, F>(&C, a, b, ai);

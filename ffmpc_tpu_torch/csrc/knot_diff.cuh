@@ -3,10 +3,13 @@
 // its terminal knot (cost, Lx, Lxx), in one launch.
 //
 // The kernel's body, for one knot family: the including source names it
-// (`using Family = ffmpc::Augmented;` or `ffmpc::Classical;` in an anonymous
-// namespace, before this header) and defines its C interface: knot_diff.cu
-// the augmented (force-feedback) knot, knot_diff_classical.cu the classical
-// one.  Each source is built by its own nvcc, in parallel.
+// (`using Family = ffmpc::Augmented;`, `ffmpc::Classical;`, or their
+// point-contact families `ffmpc::AugmentedPoint3d;`, `ffmpc::ClassicalPoint3d;`
+// in an anonymous namespace, before this header) and defines its C
+// interface: knot_diff.cu the augmented (force-feedback) knot,
+// knot_diff_classical.cu the classical one, knot_diff_point3d.cu and
+// knot_diff_classical_point3d.cu the same with the point contact.  Each
+// source is built by its own nvcc, in parallel.
 //
 // Replaces both TPU kernels of ffmpc_tpu/solver/diff_pallas.py, whose body
 // is ffmpc_tpu/ocp/channel_diff.py::make_channel_diff:
@@ -98,6 +101,21 @@
 // u = 0, feed nothing the terminal outputs take: 1 knot in 37, so the
 // columns' code stays the augmented kernel's).
 
+// The point contact (nc = 3, the friction cone; ffmpc_tpu/ocp/action.py's
+// point3d, which channel_diff covers too): the same parts with the
+// contact's width a constant of the family (knot_chain.cuh::ContactRecord<3>):
+// three M^-1 Jc^T columns, the 3 x 3 Schur complement's factor, three h2 rows
+// from each tangent pass and the cone's rows folded into the force rows'
+// 3 x 3 Hessian.  Its record keeps the same 457 values a knot, so the shared
+// memory and the residency are the normal contact's: its contact fields take
+// the normal contact's column-output slots, and its columns stage their
+// outputs (126 values) in the knot's Fx tile rows 14-20 while they run,
+// copied into the record after them, over the link values only the columns
+// read; the augmented knot's filter rows are then formed from their index as
+// Fx leaves.  Bound: the outputs are the normal contact's, and the bytes
+// still bind; the operations grow about 12% (chip_smoke.py::knot_diff_flops
+// with nc = 3: two more solves, three h2 rows a column, the 3 x 3 solves).
+
 #pragma once
 
 #include <cuda_runtime.h>
@@ -107,11 +125,17 @@
 namespace {
 
 constexpr int kNX = Family::kNX;                     // the knot's state width
+constexpr int kNC = Family::kNC;                     // the contact force's width
 
 constexpr int kKnots = 32;                           // knots of a block, one a lane
 constexpr int kWarps = ffmpc::kNQ;                   // warp r: columns r, 7 + r, 14 + r
 constexpr int kThreads = 32 * kWarps;                // 224
 constexpr int kBlockFx = ffmpc::kNY * ffmpc::kNY;    // 441 values of a knot's Fx or Lxx
+// Where a point-contact knot's columns stage their outputs in its tile: Fx's
+// rows 14-20, which no column writes (the augmented knot's filter rows are
+// formed from their index as they leave).
+constexpr int kStage = 14 * ffmpc::kNY;
+static_assert(kStage + ffmpc::kColumnValues <= kBlockFx, "staged column outputs");
 
 // Blocks an SM: two float32 blocks (14 warps; registers are granted in
 // steps of 4 warps, so 128 a thread); the float64 build's shared memory
@@ -129,17 +153,17 @@ constexpr size_t smem_bytes() {
 // The knots' constants: the first set of the packed ones (a classical
 // terminal knot's costs are the running table's over dt, see
 // ffmpc::classical_terminal_unscale).
-__constant__ ffmpc::KnotConstants<float> c_consts_f32;
-__constant__ ffmpc::KnotConstants<double> c_consts_f64;
+__constant__ ffmpc::KnotConstants<float, kNC> c_consts_f32;
+__constant__ ffmpc::KnotConstants<double, kNC> c_consts_f64;
 
 template <typename T>
-__device__ __forceinline__ const ffmpc::KnotConstants<T>& consts();
+__device__ __forceinline__ const ffmpc::KnotConstants<T, kNC>& consts();
 template <>
-__device__ __forceinline__ const ffmpc::KnotConstants<float>& consts<float>() {
+__device__ __forceinline__ const ffmpc::KnotConstants<float, kNC>& consts<float>() {
   return c_consts_f32;
 }
 template <>
-__device__ __forceinline__ const ffmpc::KnotConstants<double>& consts<double>() {
+__device__ __forceinline__ const ffmpc::KnotConstants<double, kNC>& consts<double>() {
   return c_consts_f64;
 }
 
@@ -309,12 +333,21 @@ __global__ void __launch_bounds__(kThreads, min_blocks<T>())
   for (int s = 0; s < 3; ++s) {
     const int tid = fresh_tid(), lane = tid & 31;
     const BlockKnots bk = block_knots(a, run_blocks);
-    if (lane < bk.K)
-      ffmpc::diff_column<T, SURFACE>(consts<T>(), record<T>(lane), s * ffmpc::kNQ + (tid >> 5),
-                                     bk.terminal ? nullptr : smem_tile<T>() + lane * kBlockFx);
+    if (lane < bk.K) {
+      if constexpr (kNC == 1)
+        ffmpc::diff_column<T, SURFACE>(consts<T>(), record<T>(lane), s * ffmpc::kNQ + (tid >> 5),
+                                       bk.terminal ? nullptr : smem_tile<T>() + lane * kBlockFx);
+      else
+        ffmpc::diff_column<T, SURFACE>(
+            consts<T>(),
+            ffmpc::StagedRecord<T, kKnots>{smem_records<T>() + lane,
+                                           smem_tile<T>() + lane * kBlockFx + kStage},
+            s * ffmpc::kNQ + (tid >> 5),
+            bk.terminal ? nullptr : smem_tile<T>() + lane * kBlockFx);
+    }
     FFMPC_DIFF_PHASE_MARK(1 + s);
   }
-  if constexpr (!Family::kClassical) {
+  if constexpr (!Family::kClassical && kNC == 1) {
     const BlockKnots bk = block_knots(a, run_blocks);
     if (!bk.terminal) {
       constexpr int kFilter = 7 * ffmpc::kNY;  // rows 14-20
@@ -329,6 +362,15 @@ __global__ void __launch_bounds__(kThreads, min_blocks<T>())
     const BlockKnots bk = block_knots(a, run_blocks);
     T* const tile = smem_tile<T>();
     T* const rec_base = smem_records<T>();
+    if constexpr (kNC == 3) {
+      // the staged column outputs into the record, over the frames and link
+      // values only the columns read
+      for (int e = fresh_tid(); e < bk.K * ffmpc::kColumnValues; e += kThreads) {
+        const int l = e / ffmpc::kColumnValues, v = e - l * ffmpc::kColumnValues;
+        rec_base[(ffmpc::ContactRecord<3>::kColumns + v) * kKnots + l] =
+            tile[l * kBlockFx + kStage + v];
+      }
+    }
     if (!bk.terminal) {
       if constexpr (Family::kClassical) {
         constexpr int kNxx = kNX * kNX, kNxu = kNX * ffmpc::kNW;
@@ -338,8 +380,13 @@ __global__ void __launch_bounds__(kThreads, min_blocks<T>())
         store_span(a.Fu + bk.k0 * kNxu, bk.K * kNxu, [&](int e) {
           return tile[(e / kNxu) * kBlockFx + ffmpc::classical_xu(e % kNxu)];
         });
-      } else {
+      } else if constexpr (kNC == 1) {
         store_span(a.Fx + bk.k0 * kBlockFx, bk.K * kBlockFx, [&](int e) { return tile[e]; });
+      } else {
+        store_span(a.Fx + bk.k0 * kBlockFx, bk.K * kBlockFx, [&](int e) {
+          const int r = e % kBlockFx;
+          return r < kStage ? tile[e] : ffmpc::fx_filter_rows(consts<T>(), r - kStage);
+        });
       }
       // xnext leaves now: the assembly writes Lx over its slots
       store_span(a.xnext + bk.k0 * kNX, bk.K * kNX, [&](int e) {
@@ -356,7 +403,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks<T>())
     const BlockKnots bk = block_knots(a, run_blocks);
     const int c = s == 0 ? warp : (s == 1 ? 13 - warp : 20 - warp);
     if (lane < bk.K)
-      ffmpc::diff_lxx_column<T, SURFACE>(record<T>(lane), c, smem_tile<T>() + lane * kBlockFx);
+      ffmpc::diff_lxx_column<T, SURFACE, kNC>(record<T>(lane), c,
+                                              smem_tile<T>() + lane * kBlockFx);
   }
   __syncthreads();
 
@@ -399,7 +447,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks<T>())
   store_span((bk.terminal ? a.cost_T : a.cost) + k0, K, field(ffmpc::kRecCost, 1));
   if (!bk.terminal) {
     constexpr int kNu2 = ffmpc::kNW * ffmpc::kNW, kNxu = ffmpc::kNY * ffmpc::kNW;
-    const ffmpc::KnotConstants<T>& C = consts<T>();
+    const ffmpc::KnotConstants<T, kNC>& C = consts<T>();
     store_span(a.Lu + k0 * ffmpc::kNW, K * ffmpc::kNW, field(ffmpc::kRecGu, ffmpc::kNW));
     store_span(a.Luu + k0 * kNu2, K * kNu2, [&](int e) {
       return ffmpc::luu_entry<T>(record<T>(e / kNu2), e % kNu2);
@@ -435,7 +483,7 @@ cudaError_t configure() {
 // The packed constants' length: kConstSets sets of KnotConstants.
 template <typename T>
 constexpr int consts_len() {
-  return Family::kConstSets * (int)(sizeof(ffmpc::KnotConstants<T>) / sizeof(T));
+  return Family::kConstSets * (int)(sizeof(ffmpc::KnotConstants<T, kNC>) / sizeof(T));
 }
 
 template <typename T>
@@ -451,7 +499,7 @@ int launch(const void* consts_host, int n_consts, const void* xs, const void* us
   // runtime stages the bytes before returning, so the caller may free them.
   // (the first set only: see consts())
   cudaError_t err = cudaMemcpyToSymbolAsync(sym, consts_host,
-                                            sizeof(ffmpc::KnotConstants<T>), 0,
+                                            sizeof(ffmpc::KnotConstants<T, kNC>), 0,
                                             cudaMemcpyHostToDevice, s);
   if (err != cudaSuccess) return (int)err;
   err = surface ? configure<T, true>() : configure<T, false>();

@@ -5,10 +5,13 @@
 // dv_try = -sum_t w_all_t . (xs_t - xs_try_t) of every step length.
 //
 // The kernel's body, for one knot family: the including source names it
-// (`using Family = ffmpc::Augmented;` or `ffmpc::Classical;` in an anonymous
-// namespace, before this header) and defines its C interface: rollout.cu
-// the augmented (force-feedback) knot, rollout_classical.cu the classical
-// one.  Each source is built by its own nvcc, in parallel.
+// (`using Family = ffmpc::Augmented;`, `ffmpc::Classical;`, or their
+// point-contact families `ffmpc::AugmentedPoint3d;`, `ffmpc::ClassicalPoint3d;`
+// in an anonymous namespace, before this header) and defines its C
+// interface: rollout.cu the augmented (force-feedback) knot,
+// rollout_classical.cu the classical one, rollout_point3d.cu and
+// rollout_classical_point3d.cu the same with the point contact.  Each
+// source is built by its own nvcc, in parallel.
 //
 // Replaces the TPU kernel ffmpc_tpu/solver/rollout_pallas.py::_rollout_kernel
 // (body ffmpc_tpu/ocp/scalar_knot.py::make_scalar_calc_augmented, and for
@@ -89,6 +92,18 @@
 // of the terminal knot (so a block's shared memory, and its residency, are
 // the augmented kernel's).
 
+// The point contact (nc = 3; ffmpc_tpu/ocp/scalar_knot.py handles it in the
+// same body): the same phases, the contact's width a constant of the family.
+// Lane 6 forms the tool's acceleration's three rows (the drift); lanes 4-7
+// each factor M and solve for one right-hand side (M^-1 (tau - b) and the
+// three columns of M^-1 Jc^T, kept in the group's scratch), the
+// orientation term moving to lane 0; in a phase of its own lane 7 factors
+// the 3 x 3 Schur complement and forms the force and the acceleration; the
+// force's cost rows go to lanes 0-2 (unilateral, fn_track) and the cone's to
+// lanes 0-3 (knot_chain.cuh::GroupContact<3>, LaneRowLayout<3>).  Its
+// constants and row table are 28 and 56 values longer; the group's scratch
+// is the normal contact's.
+
 #pragma once
 
 #include <cuda_runtime.h>
@@ -98,15 +113,17 @@
 namespace {
 
 constexpr int kNX = Family::kNX;                  // the knot's state width
+constexpr int kNC = Family::kNC;                  // the contact force's width
+using Rows = ffmpc::LaneRowLayout<kNC>;           // the lanes' cost rows
 constexpr int kLanes = 8;                         // a group: one (problem, step length)
 constexpr int kMaxGroups = 20;                    // a block's groups
 constexpr int kMaxThreads = kLanes * kMaxGroups;  // 160
 // the packed constants' values: kConstSets sets of KnotConstants, of which
 // the first (the running knots') is staged in shared memory
-constexpr int kNConstsOne = (int)(sizeof(ffmpc::KnotConstants<float>) / sizeof(float));
+constexpr int kNConstsOne = (int)(sizeof(ffmpc::KnotConstants<float, kNC>) / sizeof(float));
 constexpr int kNConsts = Family::kConstSets * kNConstsOne;
 constexpr int kConstsPad = (kNConstsOne + 3) / 4 * 4;
-constexpr int kTablePad = (ffmpc::kRowTableSize + 3) / 4 * 4;
+constexpr int kTablePad = (Rows::kTableSize + 3) / 4 * 4;
 // Strides of a problem's plan row and of a group's scratch, 8 words past a
 // multiple of 32, so the groups of a warp hit different banks.
 constexpr int kPlanStride = 296;
@@ -162,12 +179,13 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<T>())
     rollout_kernel(ffmpc::RolloutArgs<T> a, int P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const sm = reinterpret_cast<T*>(smem_raw);
-  const ffmpc::KnotConstants<T>& C = *reinterpret_cast<const ffmpc::KnotConstants<T>*>(sm);
+  const ffmpc::KnotConstants<T, kNC>& C =
+      *reinterpret_cast<const ffmpc::KnotConstants<T, kNC>*>(sm);
   // a classical terminal knot's constants, in device memory: they differ
   // from C in the cost scales only, which the block's table takes once and
   // the orientation term reads at the terminal knot
-  const ffmpc::KnotConstants<T>& C_T =
-      reinterpret_cast<const ffmpc::KnotConstants<T>*>(a.consts)[Family::kConstSets - 1];
+  const ffmpc::KnotConstants<T, kNC>& C_T =
+      reinterpret_cast<const ffmpc::KnotConstants<T, kNC>*>(a.consts)[Family::kConstSets - 1];
   T* const table = sm + kConstsPad;                 // the lanes' cost rows
   T* const plans = table + kTablePad;               // [2][P][kPlanStride]
   T* const scratch = plans + 2 * P * kPlanStride;   // [P * A][kGroupStride]
@@ -197,10 +215,10 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<T>())
   if (tid < 2 * ffmpc::kNQ) {
     if constexpr (Family::kClassical)
       ffmpc::lane_row_table<T>(tid >= ffmpc::kNQ ? C_T : C, tid % ffmpc::kNQ,
-                               tid >= ffmpc::kNQ, table + tid * ffmpc::kLaneRowValues);
+                               tid >= ffmpc::kNQ, table + tid * Rows::kValues);
     else
       ffmpc::lane_row_table<T>(C, tid % ffmpc::kNQ, tid >= ffmpc::kNQ,
-                               table + tid * ffmpc::kLaneRowValues);
+                               table + tid * Rows::kValues);
   }
   cp_async_wait_all();
   __syncthreads();
@@ -228,7 +246,7 @@ __global__ void __launch_bounds__(kMaxThreads, min_blocks<T>())
     T* xs_row = valid ? a.xs_try + (row * (a.N + 1) + t) * kNX : nullptr;
     T* us_row = (valid && !terminal) ? a.us_try + (row * a.N + t) * ffmpc::kNW : nullptr;
 #pragma unroll
-    for (int p = 0; p < ffmpc::kGroupPhases; ++p) {
+    for (int p = 0; p < ffmpc::kFamilyPhases<Family>; ++p) {
       ffmpc::group_phase<T, SURFACE, Family>(p, C, C_T, plan, table, g, ls, lane, terminal,
                                              alpha, gap_scale, xs_row, us_row);
       __syncwarp(wmask);

@@ -5,8 +5,10 @@ batched natively: every knot function takes tensors with arbitrary leading
 batch dims (a single knot slice of ``ProblemRefs``, states (..., nx),
 controls (..., nu)).
 
-Ported so far, both with the 1-D normal contact (``contact_model=
-"normal_1d"``; any other contact model raises):
+Ported so far, both with either contact model of the JAX package: the 1-D
+normal contact (``contact_model="normal_1d"``, force in R^1) and the 3-D
+point contact (``"point3d"``, force in R^3, with the linearized friction
+cone's barrier on A f); any other name raises:
 - the classical knot (``make_classical_knot``): state x=(q,v) in R^14,
   control u=tau in R^7, semi-implicit Euler over free or contact forward
   dynamics with the full cost stack;
@@ -106,9 +108,24 @@ def _build_q_soft_barrier(model: PandaModel, margin: float):
     return x_ref, lb, ub
 
 
+def _friction_cone_A(mu: float):
+    """Linearized 4-facet outer friction cone rows: A f >= 0 feasible."""
+    return np.array([[-1.0, 0.0, mu],
+                     [1.0, 0.0, mu],
+                     [0.0, -1.0, mu],
+                     [0.0, 1.0, mu]])
+
+
+def contact_width(W: OCPWeights, surface: bool) -> int:
+    """The contact force's width nc: 3 for the point contact on the
+    surface, else 1 (free space has no force rows)."""
+    return 3 if (surface and W.contact_model == "point3d") else 1
+
+
 def _make_spec(model: PandaModel, W: OCPWeights, surface: bool):
     """Static cost-term spec: name -> CostTerm. Order fixes residual layout.
-    The contact is the 1-D normal one (force in R^1)."""
+    The force rows are nc = ``contact_width(W, surface)`` wide."""
+    nc = contact_width(W, surface)
     spec: Dict[str, CostTerm] = {}
 
     spec["posture"] = CostTerm(W.w_posture, act.quad(), True, True)
@@ -140,11 +157,20 @@ def _make_spec(model: PandaModel, W: OCPWeights, surface: bool):
         if W.w_vz > 0.0:
             spec["vz_damp"] = CostTerm(
                 W.w_vz, act.wquad([0.0, 0.0, 1.0, 0.0, 0.0, 0.0]), True, True)
+        if nc == 3 and W.w_friction_cone > 0.0:
+            eps = max(W.friction_margin, 0.0)
+            spec["friction_cone"] = CostTerm(
+                W.w_friction_cone, act.barrier([eps] * 4, [np.inf] * 4), True, True)
         if W.w_unilateral > 0.0:
-            spec["unilateral"] = CostTerm(
-                W.w_unilateral, act.barrier([W.friction_margin], [np.inf]), True, True)
+            if nc == 1:
+                lb, ub = [W.friction_margin], [np.inf]
+            else:
+                lb = [-np.inf, -np.inf, W.friction_margin]
+                ub = [np.inf, np.inf, np.inf]
+            spec["unilateral"] = CostTerm(W.w_unilateral, act.barrier(lb, ub), True, True)
         if W.w_fn > 0.0:
-            spec["fn_track"] = CostTerm(W.w_fn, act.wquad([1.0]), True, True)
+            aw = [1.0] if nc == 1 else [0.0, 0.0, 1.0]
+            spec["fn_track"] = CostTerm(W.w_fn, act.wquad(aw), True, True)
 
     return spec
 
@@ -155,8 +181,13 @@ def _press_point(W: OCPWeights, ref):
                       ref.p_ref[..., 2:3] - W.z_press], dim=-1)
 
 
-def _contact_ref_pos(W: OCPWeights, ref):
-    return ref.p_ref[..., 2] - W.z_press
+def _contact_ref_pos(W: OCPWeights, nc: int, ref):
+    """The contact's reference: the world-z height (...,) for the 1-D
+    contact, the anchor point (..., 3) (p_ref lowered by the press depth)
+    for the 3-D one."""
+    if nc == 1:
+        return ref.p_ref[..., 2] - W.z_press
+    return _press_point(W, ref)
 
 
 def _residual_values(model: PandaModel, W: OCPWeights, surface: bool,
@@ -186,10 +217,18 @@ def _residual_values(model: PandaModel, W: OCPWeights, surface: bool,
             res["plane_z"] = fk_res.ee_p - _press_point(W, ref)
         if W.w_vz > 0.0:
             res["vz_damp"] = vel6
+        nc = contact_width(W, surface)
+        if nc == 3 and W.w_friction_cone > 0.0:
+            A = torch.as_tensor(_friction_cone_A(W.mu), dtype=x.dtype, device=x.device)
+            res["friction_cone"] = _mv(A, force)
         if W.w_unilateral > 0.0:
             res["unilateral"] = force
         if W.w_fn > 0.0:
-            res["fn_track"] = force - W.fn_des
+            if nc == 1:
+                res["fn_track"] = force - W.fn_des
+            else:
+                fn_ref = torch.tensor([0.0, 0.0, W.fn_des], dtype=x.dtype, device=x.device)
+                res["fn_track"] = force - fn_ref
 
     return res
 
@@ -198,11 +237,12 @@ def _classical_raw(model: PandaModel, W: OCPWeights, surface: bool,
                    terminal: bool, ref, x, u):
     """xnext + residual dict for one classical knot. x: (..., 14), u: (..., 7)."""
     dt = float(W.dt_ocp)
+    nc = contact_width(W, surface)
     q, v = x[..., :7], x[..., 7:]
 
     if surface:
         dyn = fwd_dynamics_contact(
-            model, q, v, u, ref_pos=_contact_ref_pos(W, ref), nc1=True,
+            model, q, v, u, ref_pos=_contact_ref_pos(W, nc, ref), nc1=nc == 1,
             baumgarte_kp=W.contact_gains[0], baumgarte_kd=W.contact_gains[1],
             damping_c=W.contact_inv_damping)
         acc, force, fk_res = dyn.acc, dyn.force, dyn.fk_res
@@ -283,6 +323,7 @@ def _classical_analytic(model: PandaModel, W: OCPWeights, surface: bool,
     exactly) plus one 7-tangent forward sweep through the FK-only chain for
     the orientation log-map and the dJ/dq·v velocity term."""
     dt = float(W.dt_ocp)
+    nc = contact_width(W, surface)
     q, v = x[..., :7], x[..., 7:]
     batch = x.shape[:-1]
     kw = dict(dtype=x.dtype, device=x.device)
@@ -297,7 +338,7 @@ def _classical_analytic(model: PandaModel, W: OCPWeights, surface: bool,
 
     if surface:
         dd = contact_dynamics_derivs(
-            model, q, v, u, ref_pos=_contact_ref_pos(W, ref), nc1=True,
+            model, q, v, u, ref_pos=_contact_ref_pos(W, nc, ref), nc1=nc == 1,
             baumgarte_kp=W.contact_gains[0], baumgarte_kd=W.contact_gains[1],
             damping_c=W.contact_inv_damping, extra_q_fn=kin_of)
         acc, force, fk_res = dd.acc, dd.force, dd.fk_res
@@ -355,6 +396,10 @@ def _classical_analytic(model: PandaModel, W: OCPWeights, surface: bool,
             Jx["plane_z"] = J_pos14
         if W.w_vz > 0.0:
             Jx["vz_damp"] = J_vel6
+        if nc == 3 and W.w_friction_cone > 0.0:
+            A = torch.as_tensor(_friction_cone_A(W.mu), **kw)
+            Jx["friction_cone"] = A @ df_dx
+            Ju["friction_cone"] = A @ df_du
         if W.w_unilateral > 0.0:
             Jx["unilateral"] = df_dx
             Ju["unilateral"] = df_du
@@ -369,11 +414,13 @@ def _classical_analytic(model: PandaModel, W: OCPWeights, surface: bool,
 # classical knot
 # ---------------------------------------------------------------------------
 
+CONTACT_MODELS = ("normal_1d", "point3d")
+
+
 def _check_contact_model(W: OCPWeights):
-    if W.contact_model != "normal_1d":
+    if W.contact_model not in CONTACT_MODELS:
         raise ValueError(
-            f"contact_model {W.contact_model!r}: only the normal_1d contact "
-            "is ported")
+            f"contact_model {W.contact_model!r}: expected one of {CONTACT_MODELS}")
 
 
 def make_classical_knot(model: PandaModel, W: OCPWeights,

@@ -11,7 +11,9 @@ running knots and of its terminal knot:
 
 ``diff_all`` launches the hand-written kernel ``csrc/knot_diff.cu`` (the
 augmented knot, nx = 21) or ``csrc/knot_diff_classical.cu`` (the classical
-knot, nx = 14), both ``csrc/knot_diff.cuh`` with device code
+knot, nx = 14), and for the point contact (``contact_model="point3d"``)
+``csrc/knot_diff_point3d.cu`` or ``csrc/knot_diff_classical_point3d.cu``,
+all ``csrc/knot_diff.cuh`` with device code
 ``csrc/knot_chain.cuh::diff_primal``, ``diff_column`` and
 ``diff_lxx_column``, for CUDA tensors, or raises, and
 uses ``diff_reference`` only for CPU tensors.  ``diff_reference`` is the
@@ -31,8 +33,8 @@ import torch
 from ..ocp.action import KnotDeriv, KnotModel
 from ..ocp.weights import ProblemRefs
 from ._cuda_build import bind, launch, load_library
-from .rollout_cuda import (FAMILY_NX, KERNEL_NU, check_refs, consts_len, family_of,
-                           kernel_library, library_stem)
+from .rollout_cuda import (FAMILY_NX, KERNEL_NU, check_refs, consts_len, contact_of,
+                           family_of, kernel_library, library_stem)
 
 
 class KnotDerivs(NamedTuple):
@@ -73,16 +75,17 @@ ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def _kernel_fn(dtype, family="augmented"):
-    lib, prefix = kernel_library("knot_diff", family, dtype)
+def _kernel_fn(dtype, family="augmented", contact="normal_1d"):
+    lib, prefix = kernel_library("knot_diff", family, dtype, contact)
     return bind(lib, f"{prefix}_{_SUFFIX[dtype]}", ARGTYPES)
 
 
-def resident_blocks_per_sm(dtype=torch.float32, family: str = "augmented") -> int:
+def resident_blocks_per_sm(dtype=torch.float32, family: str = "augmented",
+                           contact: str = "normal_1d") -> int:
     """Blocks of the kernel (224 threads, 32 knots each) that one SM holds
     at once, as launched (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
     with its shared memory); needs a card."""
-    stem = library_stem("knot_diff", family)
+    stem = library_stem("knot_diff", family, contact)
     fn = bind(load_library(stem), f"ffmpc_{stem}_occupancy_{_SUFFIX[dtype]}",
               [ctypes.POINTER(ctypes.c_int)])
     n = ctypes.c_int(0)
@@ -101,7 +104,7 @@ def kernel_args(knot: KnotModel, consts: torch.Tensor, refs_run: ProblemRefs,
     B, N, nx, nu = _check_args(refs_run, ref_T, xs, us)
     if xs.device.type != "cuda":
         raise ValueError(f"diff_all: unsupported device {xs.device}")
-    family = family_of(knot)
+    family, contact = family_of(knot), contact_of(knot)
     if (nx, nu) != (FAMILY_NX[family], KERNEL_NU):
         raise ValueError(f"diff_all: the kernel is built for nx={FAMILY_NX[family]}, "
                          f"nu={KERNEL_NU} ({family} knot); got nx={nx}, nu={nu}")
@@ -111,9 +114,9 @@ def kernel_args(knot: KnotModel, consts: torch.Tensor, refs_run: ProblemRefs,
     if B < 1 or N < 1:
         raise ValueError(f"diff_all: empty batch or horizon (B={B}, N={N})")
     if consts.dtype != dtype or consts.device.type != "cpu" \
-            or consts.numel() != consts_len(family) or not consts.is_contiguous():
+            or consts.numel() != consts_len(family, contact) or not consts.is_contiguous():
         raise ValueError(f"diff_all: consts must be pack_knot_consts(..., family={family!r}) "
-                         f"in the states' dtype {dtype}")
+                         f"of the {contact} contact in the states' dtype {dtype}")
     tensors = dict(xs=xs, us=us)
     for f in ProblemRefs._fields:
         tensors[f"refs_run.{f}"] = getattr(refs_run, f)
@@ -134,8 +137,8 @@ def kernel_args(knot: KnotModel, consts: torch.Tensor, refs_run: ProblemRefs,
     refs_p = ptrs6(*(getattr(refs_run, f).data_ptr() for f in ProblemRefs._fields))
     refT_p = ptrs6(*(getattr(ref_T, f).data_ptr() for f in ProblemRefs._fields))
     outs_p = (ctypes.c_void_p * 12)(*(a.data_ptr() for a in (*run, *out[1:])))
-    return out, (consts.data_ptr(), consts_len(family), xs.data_ptr(), us.data_ptr(), refs_p,
-                 refT_p, outs_p, B, N, int(bool(knot.surface)))
+    return out, (consts.data_ptr(), consts_len(family, contact), xs.data_ptr(), us.data_ptr(),
+                 refs_p, refT_p, outs_p, B, N, int(bool(knot.surface)))
 
 
 def diff_all(knot: KnotModel, consts: torch.Tensor, refs_run: ProblemRefs,
@@ -151,7 +154,7 @@ def diff_all(knot: KnotModel, consts: torch.Tensor, refs_run: ProblemRefs,
         _check_args(refs_run, ref_T, xs, us)
         return diff_reference(knot, refs_run, ref_T, xs, us)
     out, args = kernel_args(knot, consts, refs_run, ref_T, xs, us)
-    launch("diff", _kernel_fn(xs.dtype, knot.family), xs.device, *args)
+    launch("diff", _kernel_fn(xs.dtype, knot.family, knot.W.contact_model), xs.device, *args)
     diff_all.launches += 1
     return out
 

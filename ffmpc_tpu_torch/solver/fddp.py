@@ -34,7 +34,7 @@ from ..ocp.action import KnotModel
 from ..ocp.weights import ProblemRefs
 from .backward_cuda import backward_box, backward_box_reference
 from .diff_cuda import KnotDerivs, diff_all, diff_reference
-from .rollout_cuda import (consts_len, family_of, pack_knot_consts, rollout,
+from .rollout_cuda import (consts_len, contact_of, family_of, pack_knot_consts, rollout,
                            rollout_reference)
 
 KGAIN_REG = 1e-12
@@ -221,10 +221,12 @@ def solve(knot: KnotModel, refs_run: ProblemRefs, ref_T: ProblemRefs, x0,
         raise ValueError(f"unknown rollout_mode {S.rollout_mode!r}")
     if S.diff_mode not in ("kernel", "plain"):
         raise ValueError(f"unknown diff_mode {S.diff_mode!r}")
-    if consts is not None and consts.numel() != consts_len(family_of(knot)):
-        # checked on every device: another family's layout never reaches a kernel
+    if consts is not None and consts.numel() != consts_len(family_of(knot), contact_of(knot)):
+        # checked on every device: another family's or contact model's layout
+        # never reaches a kernel
         raise ValueError(f"solve: consts hold {consts.numel()} values, the {knot.family} "
-                         f"knot's pack_knot_consts {consts_len(knot.family)}")
+                         f"knot's pack_knot_consts of the {knot.W.contact_model} contact "
+                         f"{consts_len(knot.family, knot.W.contact_model)}")
     nx, nu = knot.nx, knot.nu
     B, N = us_init.shape[0], us_init.shape[1]
     dtype, device = xs_init.dtype, xs_init.device

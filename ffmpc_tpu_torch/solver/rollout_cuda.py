@@ -17,8 +17,10 @@ length, ``dv_try = -sum_{t,i} w_all[t,i] (xs[t,i] - xs_try[t,i])``
 
 ``rollout`` launches the hand-written kernel ``csrc/rollout.cu`` (the
 augmented knot, nx = 21) or ``csrc/rollout_classical.cu`` (the classical
-knot, nx = 14), both ``csrc/rollout.cuh`` with device code in
-``csrc/knot_chain.cuh``, for CUDA tensors, or raises, and uses
+knot, nx = 14), and for the point contact (``contact_model="point3d"``)
+``csrc/rollout_point3d.cu`` or ``csrc/rollout_classical_point3d.cu``, all
+``csrc/rollout.cuh`` with device code in ``csrc/knot_chain.cuh``, for CUDA
+tensors, or raises, and uses
 ``rollout_reference`` only for CPU tensors.  ``rollout_reference`` is the
 solver's alpha-batched forward pass, a Python loop over the knots of batched
 ``knot.calc`` calls: what the kernel is held against, and what
@@ -32,43 +34,59 @@ import ctypes
 import numpy as np
 import torch
 
-from ..ocp.action import (KnotModel, _build_q_soft_barrier, _make_spec, augmented_spec,
-                          lpf_coefficients)
+from ..ocp.action import (CONTACT_MODELS, KnotModel, _build_q_soft_barrier, _make_spec,
+                          augmented_spec, lpf_coefficients)
 from ..ocp.weights import ProblemRefs
 from ._cuda_build import bind, launch, load_library
 
 # The knot families the kernels are instantiated for, with their state widths
-# (all with nu = 7): csrc/knot_chain.cuh::Augmented and ::Classical.
+# (all with nu = 7): csrc/knot_chain.cuh::Augmented and ::Classical; each
+# also for the point contact (::AugmentedPoint3d, ::ClassicalPoint3d).
 FAMILY_NX = {"augmented": 21, "classical": 14}
 KERNEL_NU = 7
-# The libraries of the rollout and derivative kernels for each family
-# (csrc/<stem>.cu; its C functions are ffmpc_<stem>_*).
+# The libraries of the rollout and derivative kernels for each family and
+# contact model (csrc/<stem>.cu; its C functions are ffmpc_<stem>_*).
 _LIBRARY_SUFFIX = {"augmented": "", "classical": "_classical"}
+_CONTACT_SUFFIX = {"normal_1d": "", "point3d": "_point3d"}
 
-# The cost slots of csrc/knot_chain.cuh (enum Slot), in summation order, with
-# their residual widths.  A knot's spec must list its terms in this order.
-# tau_reg and tau_soft_limits act on the inner knot's torque: the augmented
-# knot's torque state, the classical knot's control.
-COST_SLOTS = (("posture", 14), ("v_damp", 14), ("q_soft_limits", 14),
-              ("ee_ori", 3), ("w_damp", 6), ("tau_reg", 7),
-              ("tau_soft_limits", 7), ("ee_pos", 3), ("ee_xy", 3),
-              ("ee_vxy", 6), ("plane_z", 3), ("vz_damp", 6),
-              ("unilateral", 1), ("fn_track", 1), ("y_reg", 21),
-              ("w_reg", 7), ("w_soft", 7))
+
+def _cost_slots(contact: str):
+    """The cost slots of csrc/knot_chain.cuh (enum Slot; CostLayout<3> for
+    the point contact), in summation order, with their residual widths.  A
+    knot's spec must list its terms in this order.  tau_reg and
+    tau_soft_limits act on the inner knot's torque: the augmented knot's
+    torque state, the classical knot's control."""
+    force = ((("unilateral", 1), ("fn_track", 1)) if contact == "normal_1d" else
+             (("friction_cone", 4), ("unilateral", 3), ("fn_track", 3)))
+    return ((("posture", 14), ("v_damp", 14), ("q_soft_limits", 14),
+             ("ee_ori", 3), ("w_damp", 6), ("tau_reg", 7),
+             ("tau_soft_limits", 7), ("ee_pos", 3), ("ee_xy", 3),
+             ("ee_vxy", 6), ("plane_z", 3), ("vz_damp", 6))
+            + force + (("y_reg", 21), ("w_reg", 7), ("w_soft", 7)))
+
+
+def _const_fields(contact: str):
+    """Fields of csrc/knot_chain.cuh::KnotConstants in declaration order,
+    with their sizes in elements (the point contact's friction coefficient
+    mu, its base, first)."""
+    slots = _cost_slots(contact)
+    n_rows = sum(n for _, n in slots)
+    return ((("mu", 1),) if contact == "point3d" else ()) + (
+        ("base_rot", 9), ("base_pos", 3), ("j_pos", 21), ("j_rot", 63),
+        ("ee_pos", 3), ("ee_rot", 9), ("mass", 7), ("com", 21), ("inertia", 63),
+        ("armature", 7), ("damping", 7), ("gravity", 3),
+        ("dt", 1), ("lpf_alpha", 1), ("lpf_beta", 1), ("z_press", 1), ("kp", 1),
+        ("kd", 1), ("damping_c", 1), ("fn_des", 1),
+        ("u_lb", 7), ("u_ub", 7), ("q_soft_ref", 14),
+        ("slot_scale", len(slots)), ("slot_barrier", len(slots)),
+        ("slot_terminal", len(slots)),
+        ("row_w", n_rows), ("row_lb", n_rows), ("row_ub", n_rows))
+
+
+# The normal contact's layout.
+COST_SLOTS = _cost_slots("normal_1d")
 N_ROWS = sum(n for _, n in COST_SLOTS)
-
-# Fields of csrc/knot_chain.cuh::KnotConstants in declaration order, with
-# their sizes in elements.
-CONST_FIELDS = (
-    ("base_rot", 9), ("base_pos", 3), ("j_pos", 21), ("j_rot", 63),
-    ("ee_pos", 3), ("ee_rot", 9), ("mass", 7), ("com", 21), ("inertia", 63),
-    ("armature", 7), ("damping", 7), ("gravity", 3),
-    ("dt", 1), ("lpf_alpha", 1), ("lpf_beta", 1), ("z_press", 1), ("kp", 1),
-    ("kd", 1), ("damping_c", 1), ("fn_des", 1),
-    ("u_lb", 7), ("u_ub", 7), ("q_soft_ref", 14),
-    ("slot_scale", len(COST_SLOTS)), ("slot_barrier", len(COST_SLOTS)),
-    ("slot_terminal", len(COST_SLOTS)),
-    ("row_w", N_ROWS), ("row_lb", N_ROWS), ("row_ub", N_ROWS))
+CONST_FIELDS = _const_fields("normal_1d")
 N_CONSTS = sum(n for _, n in CONST_FIELDS)
 
 
@@ -80,17 +98,27 @@ def family_of(knot: KnotModel) -> str:
     return knot.family
 
 
-def library_stem(kernel: str, family: str) -> str:
+def contact_of(knot: KnotModel) -> str:
+    """The knot's contact model, one the kernels are built for, or raise."""
+    contact = getattr(knot.W, "contact_model", None)
+    if contact not in _CONTACT_SUFFIX:
+        raise ValueError(f"the kernels are built for the contact models {CONTACT_MODELS}; "
+                         f"this knot's is {contact!r}")
+    return contact
+
+
+def library_stem(kernel: str, family: str, contact: str = "normal_1d") -> str:
     """The CUDA source (csrc/<stem>.cu) of ``kernel`` ("rollout" or
-    "knot_diff") for ``family``."""
-    return kernel + _LIBRARY_SUFFIX[family]
+    "knot_diff") for ``family`` and ``contact``."""
+    return kernel + _LIBRARY_SUFFIX[family] + _CONTACT_SUFFIX[contact]
 
 
-def consts_len(family: str) -> int:
-    """Values of ``pack_knot_consts`` for ``family``: one set of
-    ``KnotConstants``, or (classical) two, the running knots' and the
-    terminal knot's."""
-    return N_CONSTS * (2 if family == "classical" else 1)
+def consts_len(family: str, contact: str = "normal_1d") -> int:
+    """Values of ``pack_knot_consts`` for ``family`` and ``contact``: one
+    set of ``KnotConstants``, or (classical) two, the running knots' and
+    the terminal knot's."""
+    n = sum(n for _, n in _const_fields(contact))
+    return n * (2 if family == "classical" else 1)
 
 
 def cost_table(model, W, surface: bool, family: str = "augmented",
@@ -101,6 +129,8 @@ def cost_table(model, W, surface: bool, family: str = "augmented",
     written as a weighted quadratic with unit weights (the same value).
     ``terminal``: the classical terminal knot's table, its terms unscaled
     (the augmented terminal knot keeps the running table's dt scale)."""
+    slots = _cost_slots(W.contact_model)
+    n_rows = sum(n for _, n in slots)
     if family == "classical":
         spec = _make_spec(model, W, surface)
         # the derivative kernel forms a classical terminal knot's costs as
@@ -110,19 +140,19 @@ def cost_table(model, W, surface: bool, family: str = "augmented",
     else:
         spec, _ = augmented_spec(model, W, surface)
     dt_scale = 1.0 if (family == "classical" and terminal) else float(W.dt_ocp)
-    names = [n for n, _ in COST_SLOTS]
+    names = [n for n, _ in slots]
     order = [names.index(n) if n in names else -1 for n in spec]
     if -1 in order or order != sorted(order):
         raise ValueError(
             f"rollout kernel: cost terms {list(spec)} are not a subsequence "
             f"of the kernel's slots {names}")
-    n_s = len(COST_SLOTS)
+    n_s = len(slots)
     scale, barrier, terminal = np.zeros(n_s), np.zeros(n_s), np.zeros(n_s)
-    row_w = np.zeros(N_ROWS)
-    row_lb = np.full(N_ROWS, -np.inf)
-    row_ub = np.full(N_ROWS, np.inf)
+    row_w = np.zeros(n_rows)
+    row_lb = np.full(n_rows, -np.inf)
+    row_ub = np.full(n_rows, np.inf)
     row0 = 0
-    for s, (name, nr) in enumerate(COST_SLOTS):
+    for s, (name, nr) in enumerate(slots):
         term = spec.get(name)
         if term is not None:
             scale[s] = term.weight * (dt_scale if term.dt_scaled else 1.0)
@@ -153,19 +183,20 @@ def cost_table(model, W, surface: bool, family: str = "augmented",
 def pack_knot_consts(model, W, surface: bool, dtype,
                      family: str = "augmented") -> torch.Tensor:
     """Flatten the model constants, the knot's scalars and its cost table
-    into the kernel's ``KnotConstants`` layout: a flat CPU tensor in
-    ``dtype``.  For the classical family, two such sets, the running knots'
-    then the terminal knot's (``consts_len``).  Raises for a knot the kernel
-    does not compute (another family or contact model, a missing model)."""
+    into the kernel's ``KnotConstants`` layout for ``W.contact_model``: a
+    flat CPU tensor in ``dtype``.  For the classical family, two such sets,
+    the running knots' then the terminal knot's (``consts_len``).  Raises
+    for a knot the kernel does not compute (another family or contact
+    model, a missing model)."""
     if model is None or W is None or surface is None:
         raise ValueError("rollout kernel: the knot carries no model / weights "
                          "(only the knots of ocp/action.py are ported)")
     if family not in FAMILY_NX:
         raise ValueError(f"rollout kernel: knot family {family!r}; the kernels are "
                          f"built for {sorted(FAMILY_NX)}")
-    if W.contact_model != "normal_1d":
+    if W.contact_model not in _CONTACT_SUFFIX:
         raise ValueError(f"rollout kernel: contact_model {W.contact_model!r}; "
-                         "only normal_1d is ported")
+                         f"the kernels are built for {CONTACT_MODELS}")
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"rollout kernel: unsupported dtype {dtype}")
     # the classical knot has no torque filter
@@ -180,11 +211,11 @@ def pack_knot_consts(model, W, surface: bool, dtype,
         dt=float(W.dt_ocp), lpf_alpha=alpha, lpf_beta=beta,
         z_press=float(W.z_press), kp=float(W.contact_gains[0]),
         kd=float(W.contact_gains[1]), damping_c=float(W.contact_inv_damping),
-        fn_des=float(W.fn_des), u_lb=-lim, u_ub=lim, q_soft_ref=x_ref)
+        fn_des=float(W.fn_des), u_lb=-lim, u_ub=lim, q_soft_ref=x_ref, mu=float(W.mu))
     parts = []
     for terminal in ((False, True) if family == "classical" else (False,)):
         fields.update(cost_table(model, W, surface, family, terminal))
-        for name, n in CONST_FIELDS:
+        for name, n in _const_fields(W.contact_model):
             a = np.asarray(fields[name], dtype=np.float64).reshape(-1)
             if a.size != n:
                 raise ValueError(f"rollout kernel: constant {name} has {a.size} values, "
@@ -300,35 +331,36 @@ def _suffix(dtype):
     return {torch.float32: "f32", torch.float64: "f64"}[dtype]
 
 
-def kernel_library(kernel: str, family: str, dtype):
+def kernel_library(kernel: str, family: str, dtype, contact: str = "normal_1d"):
     """The loaded library of ``kernel`` ("rollout" or "knot_diff") for
-    ``family``, and its C functions' prefix; at its first use for a dtype,
-    checks that the library's constants are as long as the packer's."""
-    stem = library_stem(kernel, family)
+    ``family`` and ``contact``, and its C functions' prefix; at its first
+    use for a dtype, checks that the library's constants are as long as the
+    packer's."""
+    stem = library_stem(kernel, family, contact)
     lib = load_library(stem)
     prefix = f"ffmpc_{stem}"
     if (stem, dtype) not in _consts_len_checked:
         n = getattr(lib, f"{prefix}_consts_len_{_suffix(dtype)}")
         n.restype = ctypes.c_int
-        if n() != consts_len(family):
+        if n() != consts_len(family, contact):
             raise RuntimeError(f"{stem} kernel: its constants hold {n()} values, "
-                               f"the packer writes {consts_len(family)}")
+                               f"the packer writes {consts_len(family, contact)}")
         _consts_len_checked.add((stem, dtype))
     return lib, prefix
 
 
-def _kernel_fn(dtype, family="augmented"):
-    lib, prefix = kernel_library("rollout", family, dtype)
+def _kernel_fn(dtype, family="augmented", contact="normal_1d"):
+    lib, prefix = kernel_library("rollout", family, dtype, contact)
     return bind(lib, f"{prefix}_{_suffix(dtype)}", ARGTYPES)
 
 
 def resident_blocks_per_sm(dtype=torch.float32, n_alphas: int = 10,
-                           family: str = "augmented") -> int:
+                           family: str = "augmented", contact: str = "normal_1d") -> int:
     """Blocks of the kernel (contact instantiation) that one SM holds at
     once at ``n_alphas`` step lengths, as launched
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` with its shared
     memory); needs a card."""
-    stem = library_stem("rollout", family)
+    stem = library_stem("rollout", family, contact)
     fn = bind(load_library(stem), f"ffmpc_{stem}_occupancy_{_suffix(dtype)}",
               [ctypes.POINTER(ctypes.c_int), ctypes.c_int])
     n = ctypes.c_int(0)
@@ -364,7 +396,7 @@ def kernel_args(knot: KnotModel, consts: torch.Tensor, x0, xs, us, K, kff, fs, w
     B, N, nx, nu = _check_args(x0, xs, us, K, kff, fs, w_all, feasible, refs_run, ref_T)
     if xs.device.type != "cuda":
         raise ValueError(f"rollout: unsupported device {xs.device}")
-    family = family_of(knot)
+    family, contact = family_of(knot), contact_of(knot)
     if (nx, nu) != (FAMILY_NX[family], KERNEL_NU):
         raise ValueError(f"rollout: the kernel is built for nx={FAMILY_NX[family]}, "
                          f"nu={KERNEL_NU} ({family} knot); got nx={nx}, nu={nu}")
@@ -375,9 +407,10 @@ def kernel_args(knot: KnotModel, consts: torch.Tensor, x0, xs, us, K, kff, fs, w
         raise ValueError(f"rollout: empty batch or horizon, or step lengths outside "
                          f"1..{max_alphas()} (B={B}, N={N}, A={n_alphas})")
     if consts.dtype != dtype or consts.device != xs.device \
-            or consts.numel() != consts_len(family) or not consts.is_contiguous():
+            or consts.numel() != consts_len(family, contact) or not consts.is_contiguous():
         raise ValueError(f"rollout: consts must be pack_knot_consts(..., family={family!r}) "
-                         f"in the rollout's dtype {dtype}, copied to {xs.device}")
+                         f"of the {contact} contact in the rollout's dtype {dtype}, copied "
+                         f"to {xs.device}")
     tensors = dict(x0=x0, xs=xs, us=us, K=K, kff=kff, fs=fs, w_all=w_all, feasible=feasible)
     for f in ProblemRefs._fields:
         tensors[f"refs_run.{f}"] = getattr(refs_run, f)
@@ -394,7 +427,7 @@ def kernel_args(knot: KnotModel, consts: torch.Tensor, x0, xs, us, K, kff, fs, w
     ptrs = ctypes.c_void_p * 6
     refs_p = ptrs(*(getattr(refs_run, f).data_ptr() for f in ProblemRefs._fields))
     refT_p = ptrs(*(getattr(ref_T, f).data_ptr() for f in ProblemRefs._fields))
-    return outs, (consts.data_ptr(), consts_len(family),
+    return outs, (consts.data_ptr(), consts_len(family, contact),
                   *(a.data_ptr() for a in (x0, xs, us, K, kff, fs, w_all, feasible)),
                   refs_p, refT_p, *(o.data_ptr() for o in outs), B, N, A,
                   int(bool(knot.surface)))
@@ -416,7 +449,8 @@ def rollout(knot: KnotModel, consts: torch.Tensor, x0, xs, us, K, kff, fs, w_all
                                  refs_run, ref_T, n_alphas)
     outs, args = kernel_args(knot, consts, x0, xs, us, K, kff, fs, w_all, feasible,
                              refs_run, ref_T, n_alphas)
-    launch("rollout", _kernel_fn(xs.dtype, knot.family), xs.device, *args)
+    launch("rollout", _kernel_fn(xs.dtype, knot.family, knot.W.contact_model), xs.device,
+           *args)
     rollout.launches += 1
     return outs
 

@@ -26,6 +26,7 @@ cuda``.
 """
 
 import ctypes
+import dataclasses
 import math
 import shutil
 import subprocess
@@ -202,6 +203,49 @@ extern "C" int knot_diff_host_f64(const void* consts, const void* xs, const void
     }
   return 0;
 }
+
+// The same for the point contact's families (nc = 3), the classical knot's
+// on the running knots' constants, the first of its two sets.
+template <typename F>
+int diff_point3d_host(const void* consts, const void* xs, const void* us,
+                      const void* const* refs, const void* const* refs_T, void* const* outs,
+                      int B, int N, int surface, const int* columns, int n_columns) {
+  ffmpc::KnotConstants<double, 3> C[F::kConstSets];
+  std::memcpy(C, consts, sizeof(C));
+  const auto a = ffmpc::diff_args<double>(xs, us, refs, refs_T, outs, B, N);
+  for (int b = 0; b < B; ++b)
+    for (int t = 0; t <= N; ++t) {
+      if constexpr (F::kClassical) {
+        if (surface)
+          ffmpc::diff_knot_serial_classical<double, true>(C[0], a, b, t, columns, n_columns);
+        else
+          ffmpc::diff_knot_serial_classical<double, false>(C[0], a, b, t, columns, n_columns);
+      } else if (surface) {
+        ffmpc::diff_knot_serial<double, true>(C[0], a, b, t, columns, n_columns);
+      } else {
+        ffmpc::diff_knot_serial<double, false>(C[0], a, b, t, columns, n_columns);
+      }
+    }
+  return 0;
+}
+
+extern "C" int knot_diff_point3d_host_f64(const void* consts, const void* xs, const void* us,
+                                          const void* const* refs, const void* const* refs_T,
+                                          void* const* outs, int B, int N, int surface,
+                                          const int* columns, int n_columns) {
+  return diff_point3d_host<ffmpc::AugmentedPoint3d>(consts, xs, us, refs, refs_T, outs, B, N,
+                                                    surface, columns, n_columns);
+}
+
+extern "C" int knot_diff_classical_point3d_host_f64(const void* consts, const void* xs,
+                                                    const void* us, const void* const* refs,
+                                                    const void* const* refs_T,
+                                                    void* const* outs, int B, int N,
+                                                    int surface, const int* columns,
+                                                    int n_columns) {
+  return diff_point3d_host<ffmpc::ClassicalPoint3d>(consts, xs, us, refs, refs_T, outs, B, N,
+                                                    surface, columns, n_columns);
+}
 """
 
 
@@ -215,25 +259,37 @@ def host_lib(tmp_path_factory):
     src.write_text(_HOST_HARNESS)
     subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I",
                     str(_cuda_build.CSRC_DIR), "-o", str(lib), str(src)], check=True)
-    fn = ctypes.CDLL(str(lib)).knot_diff_host_f64
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int]
-    fn.restype = ctypes.c_int
+    cdll = ctypes.CDLL(str(lib))
+    fns = {}
+    for key, name in ((None, "knot_diff_host_f64"),
+                      ("augmented", "knot_diff_point3d_host_f64"),
+                      ("classical", "knot_diff_classical_point3d_host_f64")):
+        fn = getattr(cdll, name)
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p,
+                                                                  ctypes.c_int]
+        fn.restype = ctypes.c_int
+        fns[key] = fn
+    # the augmented normal-contact harness itself; the point contact's by family
+    fn = fns[None]
+    fn.point3d = fns
     return fn
 
 
 def host_diff(fn, knot, refs_run, ref_T, xs, us, columns=None):
-    """The header's parts over every knot (``diff_knot_serial``), into
-    outputs that start NaN; ``columns``: the columns to run (all if None)."""
+    """The header's parts over every knot (``diff_knot_serial``, or
+    ``diff_knot_serial_classical`` for a classical knot), into outputs that
+    start NaN; ``columns``: the columns to run (all if None)."""
     Bn, Nn = us.shape[:2]
-    consts = pack_knot_consts(knot.model, knot.W, knot.surface, torch.float64)
+    nx = knot.nx
+    consts = pack_knot_consts(knot.model, knot.W, knot.surface, torch.float64, knot.family)
 
     def nan(*shape):
         return torch.full(shape, float("nan"), dtype=torch.float64)
 
-    run = KnotDeriv(nan(Bn, Nn, 21), nan(Bn, Nn), nan(Bn, Nn, 21, 21), nan(Bn, Nn, 21, 7),
-                    nan(Bn, Nn, 21), nan(Bn, Nn, 7), nan(Bn, Nn, 21, 21),
-                    nan(Bn, Nn, 21, 7), nan(Bn, Nn, 7, 7))
-    out = dc.KnotDerivs(run, nan(Bn), nan(Bn, 21), nan(Bn, 21, 21))
+    run = KnotDeriv(nan(Bn, Nn, nx), nan(Bn, Nn), nan(Bn, Nn, nx, nx), nan(Bn, Nn, nx, 7),
+                    nan(Bn, Nn, nx), nan(Bn, Nn, 7), nan(Bn, Nn, nx, nx),
+                    nan(Bn, Nn, nx, 7), nan(Bn, Nn, 7, 7))
+    out = dc.KnotDerivs(run, nan(Bn), nan(Bn, nx), nan(Bn, nx, nx))
     p6 = ctypes.c_void_p * 6
     cols = None if columns is None else (ctypes.c_int * len(columns))(*columns)
     fn(consts.data_ptr(), xs.data_ptr(), us.data_ptr(),
@@ -316,6 +372,65 @@ def test_host_build_runs_each_column_part_on_its_own(setup, host_lib, surface):
         assert err <= 1e-11 * scale, f"column {c}: err {err:.3e} scale {scale:.3e}"
     fwd = host_diff(host_lib, knot, rr_t, rT_t, xs, us)
     rev = host_diff(host_lib, knot, rr_t, rT_t, xs, us, columns=list(range(20, -1, -1)))
+    for a, b in zip((*fwd.run, *fwd[1:]), (*rev.run, *rev[1:])):
+        assert torch.equal(a, b)
+
+
+# the point contact (contact_model="point3d": the force in R^3 and the
+# friction cone's barrier, at the values MPCConfig gives a point3d run)
+P3 = dict(contact_model="point3d", w_friction_cone=2.0e2, mu=0.6, friction_margin=1e-3)
+
+
+def point3d_knot(setup, family, surface):
+    W = dataclasses.replace(t_weights(), **P3)
+    make = taction.make_augmented_knot if family == "augmented" else taction.make_classical_knot
+    return make(setup["mt"], W, surface)
+
+
+@pytest.mark.parametrize("surface", [True, False], ids=["contact", "free"])
+@pytest.mark.parametrize("family", ["augmented", "classical"])
+def test_host_build_of_the_point3d_device_code_matches_reference(setup, host_lib, family,
+                                                                 surface):
+    """The point contact's device code (``ContactRecord<3>``: three M^-1 Jc^T
+    columns, the 3 x 3 Schur factor, three h2 rows a column staged outside
+    the record and copied after the columns, the cone folded into the force
+    rows' Hessian) == ``diff_reference`` at 1e-11 of scale, running and
+    terminal knots; on these inputs the cone's barrier acts."""
+    knot = point3d_knot(setup, family, surface)
+    rr_t, rT_t = port_refs(setup)
+    xs, us = T(setup["xs"][..., :knot.nx]), T(setup["us"])
+    want = dc.diff_reference(knot, rr_t, rT_t, xs, us)
+    assert all(bool(torch.isfinite(a).all()) for a in (*want.run, *want[1:]))
+    if surface:
+        # the cone's term in the cost: at w = 0 the cost differs
+        make = (taction.make_augmented_knot if family == "augmented"
+                else taction.make_classical_knot)
+        knot0 = make(setup["mt"], dataclasses.replace(knot.W, w_friction_cone=0.0), surface)
+        assert bool((dc.diff_reference(knot0, rr_t, rT_t, xs, us).run.cost
+                     != want.run.cost).any())
+    got = host_diff(host_lib.point3d[family], knot, rr_t, rT_t, xs, us)
+    assert_derivs_close(got, want, 1e-11, f"point3d {family}")
+
+
+def test_host_build_runs_each_point3d_column_part_on_its_own(setup, host_lib):
+    """The point contact's columns stage their outputs apart from the
+    record: each of the 21, run alone after the primal part, writes its own
+    column of Fx's rows 0-13 and no other, within 1e-11 of scale; and the
+    21 in reverse order give the same bits as in order."""
+    knot = point3d_knot(setup, "augmented", True)
+    rr_t, rT_t = port_refs(setup)
+    xs, us = T(setup["xs"]), T(setup["us"])
+    fn = host_lib.point3d["augmented"]
+    want = dc.diff_reference(knot, rr_t, rT_t, xs, us).run.Fx[:, :, :14]
+    scale = max(float(want.abs().max()), 1.0)
+    for c in range(21):
+        got = host_diff(fn, knot, rr_t, rT_t, xs, us, columns=[c]).run.Fx[:, :, :14]
+        others = [j for j in range(21) if j != c]
+        assert bool(torch.isnan(got[..., others]).all()), c
+        err = float((got[..., c] - want[..., c]).abs().max())
+        assert err <= 1e-11 * scale, f"column {c}: err {err:.3e} scale {scale:.3e}"
+    fwd = host_diff(fn, knot, rr_t, rT_t, xs, us)
+    rev = host_diff(fn, knot, rr_t, rT_t, xs, us, columns=list(range(20, -1, -1)))
     for a, b in zip((*fwd.run, *fwd[1:]), (*rev.run, *rev[1:])):
         assert torch.equal(a, b)
 

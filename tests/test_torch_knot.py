@@ -157,9 +157,10 @@ def test_cost_gradient_matches_finite_difference(setup):
 
 
 def test_other_contact_models_raise(setup):
-    """Only the 1-D normal contact is ported; the knot refuses the rest
-    instead of computing something untested."""
+    """The normal_1d and point3d contacts are ported (point3d is held
+    against JAX in ``tests/test_torch_point3d.py``); the knot refuses any
+    other contact model's name instead of computing something untested."""
     import dataclasses
-    W = dataclasses.replace(tw.flagship_weights(), contact_model="point3d")
-    with pytest.raises(ValueError, match="normal_1d"):
+    W = dataclasses.replace(tw.flagship_weights(), contact_model="hertz")
+    with pytest.raises(ValueError, match="hertz"):
         taction.make_augmented_knot(setup["mt"], W, True)

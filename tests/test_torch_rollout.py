@@ -304,10 +304,16 @@ def test_constant_packer_matches_jax_spec(setup, jx, surface, variant):
 
 
 def test_packer_refuses_what_the_kernel_does_not_compute(setup):
+    """The kernels are built for the normal_1d and point3d contacts: another
+    contact model's name, a knot without its model, or a dtype the kernels
+    are not built for raises (point3d packs, with its own layout)."""
     mt = setup["mt"]
-    with pytest.raises(ValueError, match="normal_1d"):
-        rc.pack_knot_consts(mt, dataclasses.replace(t_fweights(), contact_model="point3d"),
+    with pytest.raises(ValueError, match="hertz"):
+        rc.pack_knot_consts(mt, dataclasses.replace(t_fweights(), contact_model="hertz"),
                             True, torch.float64)
+    p3 = rc.pack_knot_consts(mt, dataclasses.replace(t_fweights(), contact_model="point3d"),
+                             True, torch.float64)
+    assert p3.numel() == rc.consts_len("augmented", "point3d") != rc.consts_len("augmented")
     with pytest.raises(ValueError, match="model"):
         rc.pack_knot_consts(None, t_fweights(), True, torch.float64)
     with pytest.raises(ValueError, match="dtype"):
@@ -406,6 +412,54 @@ extern "C" int rollout_host_f64(const void* consts, const void* const* arrays,
     }
   return 0;
 }
+
+// The same for the point contact's families (nc = 3; the classical knot's
+// two sets of constants).
+template <typename F>
+int rollout_point3d_host(const void* consts, const void* const* arrays,
+                         const void* const* refs, const void* const* refs_T, void* const* outs,
+                         int B, int N, int A, int surface) {
+  ffmpc::KnotConstants<double, 3> C[F::kConstSets];
+  std::memcpy(C, consts, sizeof(C));
+  ffmpc::RolloutArgs<double> a;
+  const double** in[7] = {&a.x0, &a.xs, &a.us, &a.K, &a.kff, &a.fs, &a.w_all};
+  for (int k = 0; k < 7; ++k) *in[k] = (const double*)arrays[k];
+  a.feasible = (const unsigned char*)arrays[7];
+  for (int f = 0; f < 6; ++f) {
+    a.ref[f] = (const double*)refs[f];
+    a.ref_T[f] = (const double*)refs_T[f];
+  }
+  a.xs_try = (double*)outs[0];
+  a.us_try = (double*)outs[1];
+  a.cost_try = (double*)outs[2];
+  a.dv_try = (double*)outs[3];
+  a.B = B;
+  a.N = N;
+  a.A = A;
+  for (int b = 0; b < B; ++b)
+    for (int ai = 0; ai < A; ++ai) {
+      if (surface)
+        ffmpc::rollout_group_serial<double, true, F>(C, a, b, ai);
+      else
+        ffmpc::rollout_group_serial<double, false, F>(C, a, b, ai);
+    }
+  return 0;
+}
+
+extern "C" int rollout_point3d_host_f64(const void* consts, const void* const* arrays,
+                                        const void* const* refs, const void* const* refs_T,
+                                        void* const* outs, int B, int N, int A, int surface) {
+  return rollout_point3d_host<ffmpc::AugmentedPoint3d>(consts, arrays, refs, refs_T, outs, B,
+                                                       N, A, surface);
+}
+
+extern "C" int rollout_classical_point3d_host_f64(const void* consts, const void* const* arrays,
+                                                  const void* const* refs,
+                                                  const void* const* refs_T, void* const* outs,
+                                                  int B, int N, int A, int surface) {
+  return rollout_point3d_host<ffmpc::ClassicalPoint3d>(consts, arrays, refs, refs_T, outs, B,
+                                                       N, A, surface);
+}
 """
 
 
@@ -419,9 +473,17 @@ def host_lib(tmp_path_factory):
     src.write_text(_HOST_HARNESS)
     subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I",
                     str(_cuda_build.CSRC_DIR), "-o", str(lib), str(src)], check=True)
-    fn = ctypes.CDLL(str(lib)).rollout_host_f64
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-    fn.restype = ctypes.c_int
+    cdll = ctypes.CDLL(str(lib))
+    fns = {}
+    for key, name in ((None, "rollout_host_f64"), ("augmented", "rollout_point3d_host_f64"),
+                      ("classical", "rollout_classical_point3d_host_f64")):
+        fn = getattr(cdll, name)
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        fn.restype = ctypes.c_int
+        fns[key] = fn
+    # the augmented normal-contact harness itself; the point contact's by family
+    fn = fns[None]
+    fn.point3d = fns
     return fn
 
 
@@ -438,6 +500,39 @@ def host_rollout(fn, setup, surface, arrays):
        p6(*(a.data_ptr() for a in setup["t_rr"])), p6(*(a.data_ptr() for a in setup["t_rT"])),
        (ctypes.c_void_p * 4)(*(o.data_ptr() for o in outs)), BN, NH, NA, int(surface))
     return outs
+
+
+# the point contact (contact_model="point3d": the force in R^3 and the
+# friction cone's barrier, at the values MPCConfig gives a point3d run)
+P3 = dict(contact_model="point3d", w_friction_cone=2.0e2, mu=0.6, friction_margin=1e-3)
+
+
+@pytest.mark.parametrize("surface", [True, False], ids=["contact", "free"])
+@pytest.mark.parametrize("family", ["augmented", "classical"])
+def test_host_build_of_the_point3d_device_code_matches_reference(setup, host_lib, family,
+                                                                 surface):
+    """The point contact's lane-group phases (the drift's three rows on lane
+    6, the solves on lanes 4-7, the force and acceleration in a phase of
+    their own on lane 7, the force's and the cone's cost rows on lanes 0-3)
+    == ``rollout_reference`` at 1e-11 of scale, for both knot families (the
+    classical knot on the states' and gains' first 14 columns)."""
+    make = taction.make_augmented_knot if family == "augmented" else taction.make_classical_knot
+    knot = make(setup["mt"], TWeights(**W_KW, **P3), surface)
+    nx = knot.nx
+    x0, xs, us, K, kff, fs, w_all, feas = port_args(setup, setup["arrays"])
+    args = [a.contiguous() for a in (x0[:, :nx], xs[..., :nx], us, K[..., :nx], kff,
+                                     fs[..., :nx], w_all[..., :nx])] + [feas]
+    want = rc.rollout_reference(knot, *args, setup["t_rr"], setup["t_rT"], NA)
+    assert all(bool(torch.isfinite(w).all()) for w in want)
+    consts = rc.pack_knot_consts(knot.model, knot.W, knot.surface, torch.float64, family)
+    outs = [torch.full(shape, float("nan"), dtype=torch.float64)
+            for shape in ((BN, NA, NH + 1, nx), (BN, NA, NH, 7), (BN, NA), (BN, NA))]
+    p6 = ctypes.c_void_p * 6
+    host_lib.point3d[family](
+        consts.data_ptr(), (ctypes.c_void_p * 8)(*(a.data_ptr() for a in args)),
+        p6(*(a.data_ptr() for a in setup["t_rr"])), p6(*(a.data_ptr() for a in setup["t_rT"])),
+        (ctypes.c_void_p * 4)(*(o.data_ptr() for o in outs)), BN, NH, NA, int(surface))
+    assert_close(outs, want, 1e-11, 0.0, f"point3d host build, {family}, surface={surface}")
 
 
 @pytest.mark.parametrize("surface", [True, False], ids=["contact", "free"])
